@@ -7,24 +7,41 @@ Phases, in order; any failure ends the run with a non-zero exit:
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the CUDA kernels from the repo's sources (one nvcc per source);
   3. hold every kernel against its plain PyTorch version on the card, at the
-     serve path's full-width shapes and at reduced ones (GQA group 2, ragged
-     T and S, a kv_len that ends inside the first split), in float32
-     (atol 1e-4: only the order of sums differs) and bfloat16 (atol 2e-2,
-     rtol 1e-2); then time each kernel at its full-width shape beside its
-     bound, its plain version and one PyTorch library call as a yardstick
-     (the port never calls that library function);
-  4. path parity: qwen3-1.7b at full width with 2 layers in float32 serves
-     2 ragged requests (prefill + 4 decode steps) on the card through the
-     kernels and on the CPU through the plain versions; logits agree within
-     atol/rtol 2e-3;
+     serve and training paths' full-width shapes and at reduced ones (GQA
+     group 2, MQA, non-causal, ragged T and S, a kv_len that ends inside the
+     first split, head dims 16 / 64 / 128), in float32 (atol 1e-4: only the
+     order of sums differs) and bfloat16 (atol 2e-2, rtol 1e-2); hold the
+     autograd Functions (flash attention on K1 + K2 + K3, RMSNorm on K5)
+     against autograd of the plain versions and check that no kernel output
+     leaves the graph; then time each kernel at its full-width shape beside
+     its bound, its plain version and one PyTorch library call as a
+     yardstick (the port never calls that library function);
+  4. serve-path parity: qwen3-1.7b at full width with 2 layers in float32
+     serves 2 ragged requests (prefill + 4 decode steps) on the card through
+     the kernels and on the CPU through the plain versions; logits agree
+     within atol/rtol 2e-3;
   5. serve: a Fast Raft rollout commits ``qwen3-1.7b@v1``, then full
      qwen3-1.7b (28 layers, bf16, random weights from a seed) serves 8
      requests of 1024 prompt tokens (one of them shorter, left-padded) and 32
      generated tokens; the logits must be finite and every kernel must have
      been launched exactly as often as the path calls it;
-  6. where the time goes: device time by kernel group for one prefill and
-     one decode step (torch.profiler), and the card's idle share against
-     the wall times of phase 5.
+  6. where the serve time goes: device time by kernel group for one prefill
+     and one decode step (torch.profiler), and the card's idle share against
+     the wall times of phase 5;
+  7. train-step parity: 2-layer full-width qwen3-1.7b in float32, one
+     consensus-gated train step on the card and on the CPU from the same
+     parameters; loss and gradient norm at rtol 1e-4, updated parameters
+     within AdamW's sign-like first step (see the phase);
+  8. train: a Fast Raft control plane commits the shard lease, then full
+     qwen3-1.7b (28 layers, bf16) trains through the port's Trainer on a
+     one-rank NCCL group, global batch 4 x 1024 tokens, 1 warm-up + 4
+     measured steps + 1 profiled step; every loss finite, the first within
+     0.5 of ln(151935), every step committed with exactly one all_reduce and
+     exact kernel launch counts; step wall time, tokens/s, peak memory and
+     the profiled step's device time by kernel group;
+  9. checkpoint resume on the card at the reduced config: 6 steps with a
+     checkpoint at 3 committed through Fast Raft against a 'crash' after 3
+     and a resume; final losses at rtol 1e-4.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. There is no CPU fallback: with
@@ -35,6 +52,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -57,6 +75,8 @@ B_SERVE, PROMPT, GEN = 8, 1024, 32
 MAX_LEN = PROMPT + GEN
 D_MODEL, HQ, HKV, HD = 2048, 16, 8, 128
 DECODE_KV = PROMPT + GEN // 2  # kv_len of the middle decode step
+# Full-width training shape: global batch 4 x 1024 tokens.
+B_TRAIN, SEQ_TRAIN = 4, 1024
 
 
 def log(msg: str) -> None:
@@ -227,6 +247,113 @@ def check_kernels(dev, timer):
     return out
 
 
+def check_backward(dev, timer):
+    """K2 (dQ) and K3 (dK/dV) against ref.attention_dq / attention_dkv on the
+    same o and lse, and the whole FlashAttentionFn against torch.autograd.grad
+    of ref.attention; then the autograd guarantees of ops.py; then K2 and K3
+    timed at the full-width training shape."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    errs = {"flash_attention_dq": [], "flash_attention_dkv": []}
+    cases = [  # B, T, Hq, Hkv, D, causal
+        (B_TRAIN, SEQ_TRAIN, HQ, HKV, HD, True),  # full-width training shape
+        (2, 77, 4, 2, 16, True),                  # GQA 2, ragged T
+        (1, 100, 4, 1, 64, True),                 # MQA, ragged T
+        (2, 64, 4, 2, 64, False),                 # non-causal
+        (1, 130, 2, 2, 128, False),               # MHA, non-causal, ragged T
+    ]
+    for dtype in (torch.float32, torch.bfloat16):
+        log(f"phase 3: backward kernels vs plain versions, {dtype}")
+        for B, T, Hq, Hkv, D, causal in cases:
+            q, do = randn(gen, (B, T, Hq, D), dtype), randn(gen, (B, T, Hq, D), dtype)
+            k, v = randn(gen, (B, T, Hkv, D), dtype), randn(gen, (B, T, Hkv, D), dtype)
+            o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+            delta = ref.attention_delta(o, do).contiguous()
+            tag = f"B{B} T{T} Hq{Hq} Hkv{Hkv} D{D} causal={causal}"
+            check(f"flash_attention_dq {tag}", fa.launch_dq(q, k, v, do, lse, delta, causal=causal),
+                  ref.attention_dq(q, k, v, do, lse, delta, causal=causal), dtype,
+                  errs["flash_attention_dq"])
+            dk, dv = fa.launch_dkv(q, k, v, do, lse, delta, causal=causal)
+            wk, wv = ref.attention_dkv(q, k, v, do, lse, delta, causal=causal)
+            check(f"flash_attention_dkv dK {tag}", dk, wk, dtype, errs["flash_attention_dkv"])
+            check(f"flash_attention_dkv dV {tag}", dv, wv, dtype, errs["flash_attention_dkv"])
+            # The autograd Function end to end, against autograd of the plain forward.
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            out = ops.flash_attention(*leaves, causal=causal)
+            if out.grad_fn is None:
+                fail("ops.flash_attention returned an output without grad_fn")
+            got = torch.autograd.grad(out, leaves, do)
+            plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            want = torch.autograd.grad(ref.attention(*plain, causal=causal), plain, do)
+            for name, a, b in zip(("dq", "dk", "dv"), got, want):
+                check(f"FlashAttentionFn {name} {tag}", a, b, dtype, [])
+    # RMSNormFn: the kernel forward keeps the graph; its plain backward
+    # against autograd of ref.rmsnorm.
+    for dtype in (torch.float32, torch.bfloat16):
+        x = randn(gen, (B_TRAIN * 8, D_MODEL), dtype).requires_grad_(True)
+        s = randn(gen, (D_MODEL,), torch.float32).requires_grad_(True)
+        y = ops.rmsnorm(x, s)
+        if y.grad_fn is None:
+            fail("ops.rmsnorm returned an output without grad_fn")
+        dy = randn(gen, y.shape, dtype)
+        xp, sp = x.detach().clone().requires_grad_(True), s.detach().clone().requires_grad_(True)
+        want = torch.autograd.grad(ref.rmsnorm(xp, sp), (xp, sp), dy)
+        for name, a, b in zip(("dx", "dscale"), torch.autograd.grad(y, (x, s), dy), want):
+            # dscale is fp32 in both, from the same inputs.
+            check(f"RMSNormFn {name} {dtype}", a, b, dtype if name == "dx" else torch.float32, [])
+    # A cached call under grad has no backward kernel: it raises.
+    qg = randn(gen, (1, 4, 2, 16), torch.float32).requires_grad_(True)
+    kc = randn(gen, (1, 8, 2, 16), torch.float32)
+    try:
+        ops.flash_attention(qg, kc, kc, q_offset=2, kv_len=6)
+        fail("a cached flash_attention call under grad did not raise")
+    except NotImplementedError:
+        log("  cached flash_attention under grad raises NotImplementedError (ok)")
+    torch.cuda.synchronize()
+
+    log("phase 3: backward timing at the full-width training shape, bf16")
+    bf = torch.bfloat16
+    B, T = B_TRAIN, SEQ_TRAIN
+    q, do = randn(gen, (B, T, HQ, HD), bf), randn(gen, (B, T, HQ, HD), bf)
+    k, v = randn(gen, (B, T, HKV, HD), bf), randn(gen, (B, T, HKV, HD), bf)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    delta = ref.attention_delta(o, do).contiguous()
+    pairs = B * HQ * T * (T + 1) // 2
+    qbytes, kbytes, stat = q.numel() * 2, k.numel() * 2, B * HQ * T * 4
+    # Library yardstick for K2 and K3 together: SDPA's backward on a retained graph.
+    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    os_ = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+    dos = do.transpose(1, 2)
+    lib_ms = timer.ms(lambda: torch.autograd.grad(os_, (qs, ks, vs), dos, retain_graph=True))
+    out = [
+        dict(name="flash_attention_dq", route="cuda",
+             source="src/repro_torch/csrc/flash_attention_bwd.cu",
+             replaces="src/repro/kernels/flash_attention.py:207",
+             ms=timer.ms(lambda: fa.launch_dq(q, k, v, do, lse, delta)),
+             plain_ms=timer.ms(lambda: ref.attention_dq(q, k, v, do, lse, delta), reps=5),
+             library_ms=lib_ms,
+             bound=bound_ms(2 * qbytes + 2 * kbytes + 2 * stat + qbytes, 6 * HD * pairs, bf)),
+        dict(name="flash_attention_dkv", route="cuda",
+             source="src/repro_torch/csrc/flash_attention_bwd.cu",
+             replaces="src/repro/kernels/flash_attention.py:224",
+             ms=timer.ms(lambda: fa.launch_dkv(q, k, v, do, lse, delta)),
+             plain_ms=timer.ms(lambda: ref.attention_dkv(q, k, v, do, lse, delta), reps=5),
+             library_ms=lib_ms,
+             bound=bound_ms(2 * qbytes + 2 * kbytes + 2 * stat + 2 * kbytes, 8 * HD * pairs, bf)),
+    ]
+    for e in out:
+        e["bound_ms"], e["bound_by"] = e.pop("bound")
+        e["max_abs_err"] = max(errs[e["name"]])
+        log(f"  {e['name']}: {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms ({e['bound_by']}), "
+            f"plain {e['plain_ms']:.4f} ms, library (SDPA backward, dQ+dK+dV) "
+            f"{e['library_ms']:.4f} ms")
+    return out
+
+
 # ------------------------------------------------------------ phase 4
 
 def path_parity(dev):
@@ -308,8 +435,9 @@ def serve(dev, card):
     if out["tokens"].shape != (B_SERVE, GEN):
         fail(f"generated tokens of shape {out['tokens'].shape}")
     layers, steps = cfg.n_layers, GEN - 1
-    want = {"flash_attention": layers, "decode_attention": layers * steps,
-            "decode_combine": layers * steps, "rmsnorm": (4 * layers + 1) * GEN}
+    want = {"flash_attention": layers, "flash_attention_dq": 0, "flash_attention_dkv": 0,
+            "decode_attention": layers * steps, "decode_combine": layers * steps,
+            "rmsnorm": (4 * layers + 1) * GEN}
     if counts != want:
         fail(f"launch counts {counts}, want {want}")
     t_pre, t_dec = out["t_prefill"], out["t_decode"]
@@ -323,47 +451,241 @@ def serve(dev, card):
 
 KERNEL_GROUPS = (  # (group, substrings of the CUDA kernel name)
     ("flash_attention", ("fwd_kernel",)),
+    ("flash_attention_dq", ("dq_kernel",)),
+    ("flash_attention_dkv", ("dkv_kernel",)),
     ("decode_attention", ("splits_kernel",)),
     ("decode_combine", ("combine_kernel",)),
     ("rmsnorm", ("_rmsnorm_kernel",)),
     ("matmul", ("gemm", "Gemm", "cutlass", "xmma", "nvjet", "sm90")),
+    ("all_reduce", ("nccl", "AllReduce")),
 )
+
+
+def profile_groups(run):
+    """(device busy ms, kernels, {group: ms}, the five costliest kernels of
+    group "other" as (name, ms, launches)) of one call of ``run``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    groups, launches, other = {}, 0, []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        launches += e.count
+        ms = e.self_device_time_total / 1e3
+        group = next((g for g, subs in KERNEL_GROUPS if any(s in e.key for s in subs)), "other")
+        groups[group] = groups.get(group, 0.0) + ms
+        if group == "other":
+            other.append((e.key[:90], ms, e.count))
+    return sum(groups.values()), launches, groups, sorted(other, key=lambda x: -x[1])[:5]
+
+
+def log_profile(name, busy, launches, groups, other, wall_ms):
+    parts = ", ".join(f"{g} {ms:.3f}" for g, ms in sorted(groups.items(), key=lambda x: -x[1]))
+    log(f"  {name}: device busy {busy:.3f} ms of {wall_ms:.3f} ms wall "
+        f"(idle share {1 - busy / wall_ms:.3f}), {launches} kernels; ms by group: {parts}")
+    for key, ms, count in other:
+        log(f"    other: {ms:.3f} ms in {count} launches of {key}")
 
 
 def where_time_goes(prefill_fn, decode_fn, params, prompt, t_pre, t_step, dev):
     """Device time by kernel group for one prefill and one decode step,
     from torch.profiler; the idle share is 1 - busy / the unprofiled wall
     time of the same work measured above (the profiler slows the host)."""
-    from torch.profiler import ProfilerActivity, profile
-
     log("phase 6: device time by kernel group (torch.profiler)")
-    for name, run, wall in (
-        ("prefill", lambda: prefill_fn(params, prompt), t_pre),
-        ("decode step", None, t_step),
-    ):
-        if run is None:
-            logits, cache = prefill_fn(params, prompt)
-            tok = torch.argmax(logits, dim=-1)[:, None]
-            run = lambda: decode_fn(params, cache, {"tokens": tok})  # noqa: E731
+    log_profile("prefill", *profile_groups(lambda: prefill_fn(params, prompt)), t_pre * 1e3)
+    logits, cache = prefill_fn(params, prompt)
+    tok = torch.argmax(logits, dim=-1)[:, None]
+    log_profile("decode step", *profile_groups(lambda: decode_fn(params, cache, {"tokens": tok})),
+                t_step * 1e3)
+
+
+# ------------------------------------------------------------ phase 7
+
+def train_parity(dev):
+    """One train step of 2-layer full-width qwen3-1.7b in fp32 on the card
+    (kernels) and on the CPU (plain versions), from the same parameters on
+    the same batch."""
+    from repro_torch.configs import registry
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import zoo
+    from repro_torch.optim.adamw import AdamWConfig, init
+    from repro_torch.runtime import spmd
+    from repro_torch.tree import leaves_with_paths
+
+    log("phase 7: train-step parity, qwen3-1.7b full width, 2 layers, float32, card vs CPU")
+    cfg = dataclasses.replace(registry.get("qwen3-1.7b"), n_layers=2)
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    group = spmd.one_rank_group()
+    raw = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=128, global_batch=2)
+                      ).batch_at(0)
+    out = {}
+    gparams = None
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        model = zoo.build(cfg, dtype=torch.float32, device=device)
+        if gparams is None:
+            gparams = model.init(torch.Generator(device=dev).manual_seed(5))
+            host = params_to_numpy(gparams)
+            params = gparams
+        else:
+            params = model.load(params_from_numpy(host, device))
+        state = spmd.TrainState(params, init(ocfg, params))
+        batch = {k: (torch.from_numpy(v) if k == "loss_mask" else torch.from_numpy(v).long()
+                     ).to(device) for k, v in raw.items()}
+        step = spmd.build_train_step(model, ocfg, group)
+        state, metrics = step(state, batch)
+        out[name] = ({k: float(v) for k, v in metrics.items()},
+                     {"/".join(p): t.cpu() for p, t in leaves_with_paths(state.params)})
+        del model, params, state
+        torch.cuda.empty_cache()
+    (mc, pc), (mh, ph) = out["card"], out["cpu"]
+    log(f"  card: loss {mc['loss']:.6f} grad_norm {mc['grad_norm']:.6f}; "
+        f"cpu: loss {mh['loss']:.6f} grad_norm {mh['grad_norm']:.6f}")
+    for k in ("loss", "grad_norm"):
+        if abs(mc[k] - mh[k]) > 1e-4 * abs(mh[k]):
+            fail(f"train parity: {k} card {mc[k]} vs cpu {mh[k]} (rtol 1e-4)")
+    if not (mc["committed"] == mh["committed"] == 1.0):
+        fail("train parity: a step did not commit")
+    # AdamW's first step moves every parameter by about lr * sign(g): an
+    # element whose tiny gradient differs in sign by rounding lands 2 lr
+    # away. Every element within 3 lr; all but 0.1% within 1e-5.
+    worst, frac = 0.0, 0.0
+    for key, a in pc.items():
+        d = (a - ph[key]).abs()
+        worst = max(worst, d.max().item())
+        frac = max(frac, (d > 1e-5).float().mean().item())
+    log(f"  updated params: max |card - cpu| {worst:.3e}, worst leaf's share above 1e-5 "
+        f"{frac:.2e}")
+    if worst > 3 * ocfg.lr or frac > 1e-3:
+        fail(f"train parity: updated parameters differ (max {worst}, share {frac})")
+
+
+# ------------------------------------------------------------ phase 8
+
+def train(dev, card):
+    """Full qwen3-1.7b (28 layers, bf16) trains through the port's Trainer
+    on a one-rank NCCL group, shard lease committed through Fast Raft: one
+    warm-up step, four measured steps, one profiled step. Every step is
+    checked: finite loss, committed, one all_reduce, exact launch counts."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.controlplane import ControlPlane
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = registry.get("qwen3-1.7b")
+    steps = 6  # 1 warm-up + 4 measured + 1 under the profiler
+    log(f"phase 8: train {cfg.name}, {cfg.n_layers} layers, bf16, global batch "
+        f"{B_TRAIN} x {SEQ_TRAIN} tokens, remat={cfg.remat!r}, {steps} steps")
+    torch.cuda.reset_peak_memory_stats()
+    control = ControlPlane(n_nodes=3)
+    trainer = Trainer(TrainerConfig(
+        arch=cfg, steps=steps, global_batch=B_TRAIN, seq_len=SEQ_TRAIN, dtype=torch.bfloat16,
+        opt=AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=steps), device="cuda"),
+        control=control)
+    leases = [c for c in control.applied if c.startswith("lease:")]
+    if not leases:
+        fail("no shard lease committed")
+    log(f"  shard lease committed via Fast Raft: {leases[-1]}")
+
+    all_reduce, n_reduce = dist.all_reduce, [0]
+
+    def counting_all_reduce(*args, **kwargs):
+        n_reduce[0] += 1
+        return all_reduce(*args, **kwargs)
+
+    inner, per_step, profiled = trainer.step_fn, [], {}
+
+    def step_fn(state, batch):
+        ops.reset_launches()
+        n_reduce[0] = 0
+        if len(per_step) == steps - 1:
+            holder = {}
+            profiled["prof"] = profile_groups(lambda: holder.update(out=inner(state, batch)))
+            out = holder["out"]
+        else:
+            out = inner(state, batch)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
-        groups, launches = {}, 0
-        for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            us = e.self_device_time_total
-            launches += e.count
-            group = next((g for g, subs in KERNEL_GROUPS if any(s in e.key for s in subs)),
-                         "other")
-            groups[group] = groups.get(group, 0.0) + us / 1e3
-        busy = sum(groups.values())
-        by_time = sorted(groups.items(), key=lambda x: -x[1])
-        parts = ", ".join(f"{g} {ms:.3f}" for g, ms in by_time)
-        log(f"  {name}: device busy {busy:.3f} ms of {wall * 1e3:.3f} ms wall "
-            f"(idle share {1 - busy / (wall * 1e3):.3f}), {launches} kernels; "
-            f"ms by group: {parts}")
+        per_step.append((ops.launch_counts(), n_reduce[0]))
+        return out
+
+    dist.all_reduce, trainer.step_fn = counting_all_reduce, step_fn
+    try:
+        logs = trainer.train()
+    finally:
+        dist.all_reduce = all_reduce
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    L_ = cfg.n_layers
+    # remat="dots": each group's forward runs again in the backward, so K1
+    # and K5 launch twice per layer; the final norm runs once.
+    want = {name: 0 for name in ops.KERNELS}
+    want.update(flash_attention=2 * L_, flash_attention_dq=L_, flash_attention_dkv=L_,
+                rmsnorm=2 * 4 * L_ + 1)
+    total = {name: 0 for name in ops.KERNELS}
+    for i, (entry, (counts, reduces)) in enumerate(zip(logs, per_step)):
+        log(f"  step {i}: loss {entry['loss']:.4f}, grad_norm {entry['grad_norm']:.4f}, "
+            f"committed {entry['committed']:.0f}, n_yes {entry['n_yes']:.0f}, "
+            f"{entry['wall_ms']:.2f} ms, {reduces} all_reduce; launches {counts}")
+        if not math.isfinite(entry["loss"]) or entry["committed"] != 1.0:
+            fail(f"train step {i}: loss {entry['loss']}, committed {entry['committed']}")
+        if reduces != 1:
+            fail(f"train step {i}: {reduces} all_reduce calls, want 1")
+        if counts != want:
+            fail(f"train step {i}: launch counts {counts}, want {want}")
+        for k, v in counts.items():
+            total[k] += v
+    if abs(logs[0]["loss"] - math.log(cfg.vocab_size - 1)) > 0.5:
+        fail(f"first loss {logs[0]['loss']} not within 0.5 of ln({cfg.vocab_size - 1})")
+    walls = [e["wall_ms"] for e in logs[1:steps - 1]]
+    wall = statistics.median(walls)
+    log(f"  measured steps: {', '.join(f'{w:.2f}' for w in walls)} ms; median {wall:.2f} ms, "
+        f"{B_TRAIN * SEQ_TRAIN / wall * 1e3:.1f} tokens/s; peak memory allocated "
+        f"{peak:.2f} GiB [{card}]")
+    log_profile("train step", *profiled["prof"], wall)
+    return total
+
+
+# ------------------------------------------------------------ phase 9
+
+def checkpoint_resume():
+    """The reduced config on the card: 6 steps with a checkpoint at 3, and a
+    'crash' after 3 in a fresh directory followed by a resume, checkpoints
+    committed through Fast Raft; the final losses agree at rtol 1e-4."""
+    import tempfile
+
+    from repro_torch.configs import registry
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.controlplane import ControlPlane
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    log("phase 9: checkpoint resume on the card, qwen3-1.7b reduced, float32")
+    with tempfile.TemporaryDirectory() as tmp:
+        def run(steps, sub):
+            control = ControlPlane(n_nodes=3)
+            cfg = TrainerConfig(arch=registry.get("qwen3-1.7b", reduced=True), steps=steps,
+                                global_batch=4, seq_len=32, device="cuda",
+                                opt=AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=6),
+                                ckpt_dir=os.path.join(tmp, sub), ckpt_every=3)
+            logs = Trainer(cfg, control=control).train()
+            if not any(c.startswith("ckpt:") for c in control.applied):
+                fail("no checkpoint committed through the control plane")
+            return logs
+
+        full = run(6, "full")
+        run(3, "crashy")
+        resumed = run(6, "crashy")
+    if resumed[0]["data_step"] != 3:
+        fail(f"resumed at data step {resumed[0]['data_step']}, want 3")
+    a, b = resumed[-1]["loss"], full[-1]["loss"]
+    log(f"  final loss: uninterrupted {b:.6f}, resumed {a:.6f}")
+    if abs(a - b) > 1e-4 * abs(b):
+        fail(f"resumed loss {a} vs uninterrupted {b} (rtol 1e-4)")
 
 
 # ------------------------------------------------------------------ main
@@ -383,13 +705,23 @@ def main() -> int:
                           check=True).stdout.strip().splitlines()[0]
     log(f"phase 1: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(f"phase 2: built {build.SOURCES} in {build.build():.1f} s")
-    kernels = check_kernels(dev, Timer(dev))
+    timer = Timer(dev)
+    kernels = check_kernels(dev, timer) + check_backward(dev, timer)
+    del timer
     path_parity(dev)
-    counts = serve(dev, card)
-    for e in kernels:
-        e["launches"] = counts[e["name"]]
+    serve_counts = serve(dev, card)
+    torch.cuda.empty_cache()
+    train_parity(dev)
+    train_counts = train(dev, card)
+    torch.cuda.empty_cache()
+    checkpoint_resume()
+    for e in kernels:  # launches on the two main paths: one serve run + six train steps
+        e["launches"] = serve_counts[e["name"]] + train_counts[e["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
+    import torch.distributed as dist
+
+    dist.destroy_process_group()  # the one-rank group of phases 7-9
     print(card)
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

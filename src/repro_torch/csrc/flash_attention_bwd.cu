@@ -1,0 +1,732 @@
+// Flash attention backward for Hopper (sm_90a): the dQ kernel and the dK/dV
+// kernel.
+//
+// Replaces src/repro/kernels/flash_attention.py::_dq_kernel (TPU Pallas,
+// pallas_call at flash_attention.py:207) and ::_dkv_kernel (pallas_call at
+// flash_attention.py:224). Same function: from the forward's lse and
+// delta = rowsum(dO * O) (taken by the caller, as JAX does outside its
+// kernels), p = exp(s * scale - lse), ds = p * (dp - delta) * scale with
+// dp = dO V^T, then dQ = dS K, dK = dS^T Q (Q unscaled), dV = P^T dO. Masked
+// pairs (causal, or past a ragged edge) get p = 0 exactly, as NEG_INF did.
+// Accumulation in fp32; outputs in the input type.
+//
+// What differs from the TPU kernels:
+// - The TPU carried dQ (resp. dK, dV) in VMEM scratch across the sequential
+//   innermost grid axis. Here one block owns one output tile and loops
+//   itself: dq_kernel is one block per (q tile, query head, batch) looping
+//   over the key tiles up to the tile's last query; dkv_kernel is one block
+//   per (k tile, KV head, batch) looping over the group's query heads and
+//   the query tiles at or below the diagonal. dQ, dK and dV stay in
+//   registers and are written once.
+// - GQA: the TPU wrapper repeated K and V per query head and summed dK / dV
+//   over the group afterwards (repro/kernels/ops.py:52-64). Here dkv_kernel
+//   sums the group inside the block: no repeat copy and no atomics.
+// - Any length: ragged q and k edges are masked, where the TPU asserted
+//   T % blk == 0.
+//
+// What bounds it: at the training shape (T = 1024, D = 128) both kernels
+// are far above the card's ops-per-byte line, so operations bound them,
+// i.e. the tensor cores. Two versions of each, chosen by input type:
+// - bfloat16 (the training path): dq_kernel_mma / dkv_kernel_mma, four warps
+//   of 16 rows (queries in dQ, keys in dK/dV) multiplying on the tensor
+//   cores with mma.sync m16n8k16 (bf16 in, fp32 accumulate), as K1 does:
+//   S and dP come from fragments of shared-memory tiles; P and dS are
+//   rounded to bf16 and reused from registers as the A operand of the next
+//   product (FlashAttention-2 does the same); K, Q and dO reach that
+//   product as B operands through ldmatrix.trans. Tile rows are padded by
+//   16 bytes so the fragment loads hit distinct banks.
+// - float32 (parity checks): dq_kernel / dkv_kernel, scalar fp32 FMAs on
+//   the CUDA cores, tiles converted to fp32 in shared memory (row stride
+//   D + 1, so column walks hit distinct banks), 128 threads as 8 row groups
+//   x 16 column lanes; the result differs from an fp32 reference only in
+//   the order of sums.
+// Not yet done: wgmma, TMA and double-buffered tile loads (later work).
+//
+// The mma helpers below are the ones of flash_attention.cu: each .cu is
+// its own library, and a shared header would escape the build's source
+// hash (kernels/build.py).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stddef.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;  // 8 row groups x 16 column lanes
+constexpr int kBQ = 64;        // query rows per tile
+constexpr int kBK = 32;        // keys per tile
+
+// Copies rows [r0, r0 + rows) of head h of a (B, T, H, D) tensor into a
+// shared tile of row stride D + 1; rows past T become 0.
+template <int D>
+__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src, int rows,
+                                          int r0, int T, int H, int b, int h) {
+  constexpr int DP = D + 1;
+  for (int i = threadIdx.x; i < rows * D; i += kThreads) {
+    const int r = i / D, d = i % D, t = r0 + r;
+    dst[r * DP + d] = t < T ? src[((size_t)(b * T + t) * H + h) * D + d] : 0.f;
+  }
+}
+
+// lse and delta of rows [q0, q0 + kBQ) of (b, h), both (B, Hq, Tq) fp32.
+__device__ __forceinline__ void load_stats(float* sL, float* sDelta, const float* lse,
+                                           const float* delta, int q0, int Tq, int Hq, int b,
+                                           int h) {
+  for (int i = threadIdx.x; i < kBQ; i += kThreads) {
+    const int t = q0 + i;
+    const size_t row = ((size_t)b * Hq + h) * Tq + t;
+    sL[i] = t < Tq ? lse[row] : 0.f;
+    sDelta[i] = t < Tq ? delta[row] : 0.f;
+  }
+}
+
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  return sizeof(float) * (2 * (size_t)kBQ * (D + 1) + 2 * (size_t)kBK * (D + 1) +
+                          (size_t)kBQ * (kBK + 1) + 2 * kBQ);
+}
+
+template <int D>
+constexpr size_t dkv_smem_bytes() {
+  return sizeof(float) * (2 * (size_t)kBK * (D + 1) + 2 * (size_t)kBQ * (D + 1) +
+                          2 * (size_t)kBK * (kBQ + 1) + 2 * kBQ);
+}
+
+// ------------------------------------------------------------------- dQ
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+          const float* __restrict__ dout, const float* __restrict__ lse,
+          const float* __restrict__ delta, float* __restrict__ dq, int Tq, int Tk, int Hq,
+          int Hkv, int causal, float scale) {
+  constexpr int DP = D + 1;
+  constexpr int DC = D / 16;   // dQ columns per thread
+  constexpr int R = kBQ / 8;   // query rows per thread
+  constexpr int C = kBK / 16;  // keys per thread and tile
+  constexpr int SP = kBK + 1;  // row stride of dS
+  extern __shared__ float smem[];
+  float* sQ = smem;            // kBQ x DP
+  float* sDO = sQ + kBQ * DP;  // kBQ x DP
+  float* sK = sDO + kBQ * DP;  // kBK x DP
+  float* sV = sK + kBK * DP;   // kBK x DP
+  float* sDS = sV + kBK * DP;  // kBQ x SP
+  float* sL = sDS + kBQ * SP;  // kBQ
+  float* sDelta = sL + kBQ;    // kBQ
+
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  load_rows<D>(sQ, q, kBQ, q0, Tq, Hq, b, h);
+  load_rows<D>(sDO, dout, kBQ, q0, Tq, Hq, b, h);
+  load_stats(sL, sDelta, lse, delta, q0, Tq, Hq, b, h);
+
+  float acc[R][DC];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+
+  int kend = Tk;
+  if (causal) kend = min(kend, min(q0 + kBQ, Tq));  // last query of the tile + 1
+
+  for (int k0 = 0; k0 < kend; k0 += kBK) {
+    __syncthreads();  // Q, dO and stats are loaded; the previous tile is consumed
+    load_rows<D>(sK, k, kBK, k0, Tk, Hkv, b, hk);
+    load_rows<D>(sV, v, kBK, k0, Tk, Hkv, b, hk);
+    __syncthreads();
+
+    float s[R][C], dp[R][C];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < C; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float qv[R], ov[R], kv[C], vv[C];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        qv[i] = sQ[(ty * R + i) * DP + d];
+        ov[i] = sDO[(ty * R + i) * DP + d];
+      }
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        kv[j] = sK[(tx + 16 * j) * DP + d];
+        vv[j] = sV[(tx + 16 * j) * DP + d];
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < C; ++j) {
+          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int r = ty * R + i, t = q0 + r;
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        const int kpos = k0 + tx + 16 * j;
+        float p = 0.f;
+        if (t < Tq && kpos < Tk && !(causal && kpos > t)) p = expf(s[i][j] * scale - sL[r]);
+        sDS[r * SP + tx + 16 * j] = p * (dp[i][j] - sDelta[r]) * scale;
+      }
+    }
+    __syncthreads();
+
+    // dQ += dS K
+#pragma unroll 4
+    for (int kk = 0; kk < kBK; ++kk) {
+      float kv[DC];
+#pragma unroll
+      for (int c = 0; c < DC; ++c) kv[c] = sK[kk * DP + tx + 16 * c];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float ds = sDS[(ty * R + i) * SP + kk];
+#pragma unroll
+        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(ds, kv[c], acc[i][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int t = q0 + ty * R + i;
+    if (t >= Tq) continue;
+    float* row = dq + ((size_t)(b * Tq + t) * Hq + h) * D;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) row[tx + 16 * c] = acc[i][c];
+  }
+}
+
+// ---------------------------------------------------------------- dK, dV
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+           const float* __restrict__ dout, const float* __restrict__ lse,
+           const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
+           int Tq, int Tk, int Hq, int Hkv, int causal, float scale) {
+  constexpr int DP = D + 1;
+  constexpr int DC = D / 16;   // dK / dV columns per thread
+  constexpr int KR = kBK / 8;  // keys per thread
+  constexpr int QC = kBQ / 16; // queries per thread and tile
+  constexpr int SP = kBQ + 1;  // row stride of P^T and dS^T
+  extern __shared__ float smem[];
+  float* sK = smem;            // kBK x DP
+  float* sV = sK + kBK * DP;   // kBK x DP
+  float* sQ = sV + kBK * DP;   // kBQ x DP
+  float* sDO = sQ + kBQ * DP;  // kBQ x DP
+  float* sP = sDO + kBQ * DP;  // kBK x SP (P^T)
+  float* sDS = sP + kBK * SP;  // kBK x SP (dS^T)
+  float* sL = sDS + kBK * SP;  // kBQ
+  float* sDelta = sL + kBQ;    // kBQ
+
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int k0 = blockIdx.x * kBK, hk = blockIdx.y, b = blockIdx.z;
+  const int group = Hq / Hkv;
+  load_rows<D>(sK, k, kBK, k0, Tk, Hkv, b, hk);
+  load_rows<D>(sV, v, kBK, k0, Tk, Hkv, b, hk);
+
+  float gk[KR][DC], gv[KR][DC];
+#pragma unroll
+  for (int i = 0; i < KR; ++i)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) gk[i][c] = gv[i][c] = 0.f;
+
+  // Causal: only queries at or past k0 see this tile's keys.
+  const int qstart = causal ? (k0 / kBQ) * kBQ : 0;
+  for (int g = 0; g < group; ++g) {
+    const int h = hk * group + g;
+    for (int q0 = qstart; q0 < Tq; q0 += kBQ) {
+      __syncthreads();  // K and V are loaded; the previous q tile is consumed
+      load_rows<D>(sQ, q, kBQ, q0, Tq, Hq, b, h);
+      load_rows<D>(sDO, dout, kBQ, q0, Tq, Hq, b, h);
+      load_stats(sL, sDelta, lse, delta, q0, Tq, Hq, b, h);
+      __syncthreads();
+
+      float s[KR][QC], dp[KR][QC];
+#pragma unroll
+      for (int i = 0; i < KR; ++i)
+#pragma unroll
+        for (int j = 0; j < QC; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        float kv[KR], vv[KR], qv[QC], ov[QC];
+#pragma unroll
+        for (int i = 0; i < KR; ++i) {
+          kv[i] = sK[(ty * KR + i) * DP + d];
+          vv[i] = sV[(ty * KR + i) * DP + d];
+        }
+#pragma unroll
+        for (int j = 0; j < QC; ++j) {
+          qv[j] = sQ[(tx + 16 * j) * DP + d];
+          ov[j] = sDO[(tx + 16 * j) * DP + d];
+        }
+#pragma unroll
+        for (int i = 0; i < KR; ++i)
+#pragma unroll
+          for (int j = 0; j < QC; ++j) {
+            s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
+            dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
+          }
+      }
+
+#pragma unroll
+      for (int i = 0; i < KR; ++i) {
+        const int kr = ty * KR + i, kpos = k0 + kr;
+#pragma unroll
+        for (int j = 0; j < QC; ++j) {
+          const int r = tx + 16 * j, t = q0 + r;
+          float p = 0.f;
+          if (t < Tq && kpos < Tk && !(causal && kpos > t)) p = expf(s[i][j] * scale - sL[r]);
+          sP[kr * SP + r] = p;
+          sDS[kr * SP + r] = p * (dp[i][j] - sDelta[r]) * scale;
+        }
+      }
+      __syncthreads();
+
+      // dV += P^T dO, dK += dS^T Q
+#pragma unroll 4
+      for (int qq = 0; qq < kBQ; ++qq) {
+        float qv[DC], ov[DC];
+#pragma unroll
+        for (int c = 0; c < DC; ++c) {
+          qv[c] = sQ[qq * DP + tx + 16 * c];
+          ov[c] = sDO[qq * DP + tx + 16 * c];
+        }
+#pragma unroll
+        for (int i = 0; i < KR; ++i) {
+          const float p = sP[(ty * KR + i) * SP + qq];
+          const float ds = sDS[(ty * KR + i) * SP + qq];
+#pragma unroll
+          for (int c = 0; c < DC; ++c) {
+            gv[i][c] = fmaf(p, ov[c], gv[i][c]);
+            gk[i][c] = fmaf(ds, qv[c], gk[i][c]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < KR; ++i) {
+    const int t = k0 + ty * KR + i;
+    if (t >= Tk) continue;
+    const size_t off = ((size_t)(b * Tk + t) * Hkv + hk) * D;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      dk[off + tx + 16 * c] = gk[i][c];
+      dv[off + tx + 16 * c] = gv[i][c];
+    }
+  }
+}
+
+// ---------------------------------------------------------------- bf16 path
+
+constexpr int kMmaB = 64;  // rows of every tile: 16 per warp
+static_assert(kMmaB == kBQ, "load_stats fills kBQ rows of lse and delta");
+
+template <int D>
+constexpr size_t mma_smem_bytes() {
+  return sizeof(__nv_bfloat16) * 4 * (size_t)kMmaB * (D + 8) + sizeof(float) * 2 * kMmaB;
+}
+
+__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// c += a (16x16, row) * b (16x8, col); bf16 inputs, fp32 accumulators.
+__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four transposed 8x8 b16 matrices; lane l gives the row address of matrix
+// l / 8, row l % 8.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const __nv_bfloat16* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// Copies rows [r0, r0 + kMmaB) of head h of a (B, T, H, D) tensor into a
+// shared tile of row stride D + 8, 16 bytes at a time; rows past T become 0.
+template <int D>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int r0,
+                                          int T, int H, int b, int h) {
+  constexpr int DS = D + 8, VEC = 8;
+  for (int i = threadIdx.x; i < kMmaB * (D / VEC); i += kThreads) {
+    const int r = i / (D / VEC), c = (i % (D / VEC)) * VEC, t = r0 + r;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (t < T) val = *reinterpret_cast<const uint4*>(src + ((size_t)(b * T + t) * H + h) * D + c);
+    *reinterpret_cast<uint4*>(dst + r * DS + c) = val;
+  }
+}
+
+// The A fragment (16 x 16, row) of rows r and r + 8 of a shared tile, at
+// columns [c, c + 16).
+__device__ __forceinline__ void a_frag(uint32_t a[4], const __nv_bfloat16* tile, int DS, int r,
+                                       int c) {
+  const __nv_bfloat16* p = tile + r * DS + c;
+  a[0] = ld_pair(p);
+  a[1] = ld_pair(p + 8 * DS);
+  a[2] = ld_pair(p + 8);
+  a[3] = ld_pair(p + 8 * DS + 8);
+}
+
+// acc (16 x D) += X (16 x 64, the accumulator tiles x[8][4] rounded to bf16)
+// * tile (64 x D, row-major in shared memory).
+template <int D>
+__device__ __forceinline__ void mma_rows_by_tile(float acc[][4], float x[][4],
+                                                 const __nv_bfloat16* tile, int lane) {
+  constexpr int DS = D + 8, DT = D / 8;
+  const int mi = lane / 8, ri = lane % 8;
+#pragma unroll
+  for (int j = 0; j < kMmaB / 16; ++j) {  // two 16x8 tiles make one 16x16 A fragment
+    const uint32_t a[4] = {pack_bf16(x[2 * j][0], x[2 * j][1]),
+                           pack_bf16(x[2 * j][2], x[2 * j][3]),
+                           pack_bf16(x[2 * j + 1][0], x[2 * j + 1][1]),
+                           pack_bf16(x[2 * j + 1][2], x[2 * j + 1][3])};
+#pragma unroll
+    for (int dt = 0; dt < DT; dt += 2) {
+      uint32_t bm[4];
+      ldmatrix_x4_trans(bm, tile + (j * 16 + (mi & 1) * 8 + ri) * DS + (dt + (mi >> 1)) * 8);
+      mma_16816(acc[dt], a, bm[0], bm[1]);
+      mma_16816(acc[dt + 1], a, bm[2], bm[3]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+dq_kernel_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              __nv_bfloat16* __restrict__ dq, int Tq, int Tk, int Hq, int Hkv, int causal,
+              float scale) {
+  constexpr int DS = D + 8;       // padded row stride (bf16) of every tile
+  constexpr int KD = D / 16;      // k-steps over the head dim
+  constexpr int NT = kMmaB / 8;   // 8-key column tiles of S and dP
+  constexpr int DT = D / 8;       // 8-wide column tiles of dQ
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // kMmaB x DS
+  __nv_bfloat16* sDO = sQ + kMmaB * DS;
+  __nv_bfloat16* sK = sDO + kMmaB * DS;
+  __nv_bfloat16* sV = sK + kMmaB * DS;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;  // fragment row group and column pair
+  const int q0 = blockIdx.x * kMmaB, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int rq = warp * 16 + g;  // this thread's rows: rq and rq + 8
+  load_tile<D>(sQ, q, q0, Tq, Hq, b, h);
+  load_tile<D>(sDO, dout, q0, Tq, Hq, b, h);
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = q0 + rq + 8 * i;
+    const size_t row = ((size_t)b * Hq + h) * Tq + t;
+    lse_r[i] = t < Tq ? lse[row] : 0.f;
+    delta_r[i] = t < Tq ? delta[row] : 0.f;
+  }
+
+  float acc[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+
+  int kend = Tk;
+  if (causal) kend = min(kend, min(q0 + kMmaB, Tq));
+  for (int k0 = 0; k0 < kend; k0 += kMmaB) {
+    __syncthreads();  // Q and dO are loaded; the previous tile is consumed
+    load_tile<D>(sK, k, k0, Tk, Hkv, b, hk);
+    load_tile<D>(sV, v, k0, Tk, Hkv, b, hk);
+    __syncthreads();
+
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      uint32_t aq[4], ao[4];
+      a_frag(aq, sQ, DS, rq, kd * 16 + 2 * t4);
+      a_frag(ao, sDO, DS, rq, kd * 16 + 2 * t4);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const __nv_bfloat16* pk = sK + (n * 8 + g) * DS + kd * 16 + 2 * t4;
+        const __nv_bfloat16* pv = sV + (n * 8 + g) * DS + kd * 16 + 2 * t4;
+        mma_16816(s[n], aq, ld_pair(pk), ld_pair(pk + 8));
+        mma_16816(dp[n], ao, ld_pair(pv), ld_pair(pv + 8));
+      }
+    }
+    // dS = P * (dP - delta) * scale, written over s.
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, t = q0 + rq + 8 * i, kpos = k0 + n * 8 + 2 * t4 + (e & 1);
+        float p = 0.f;
+        if (t < Tq && kpos < Tk && !(causal && kpos > t)) p = expf(s[n][e] * scale - lse_r[i]);
+        s[n][e] = p * (dp[n][e] - delta_r[i]) * scale;
+      }
+    mma_rows_by_tile<D>(acc, s, sK, lane);  // dQ += dS K
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = q0 + rq + 8 * i;
+    if (t >= Tq) continue;
+    __nv_bfloat16* row = dq + ((size_t)(b * Tq + t) * Hq + h) * D + 2 * t4;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+      *reinterpret_cast<__nv_bfloat162*>(row + dt * 8) =
+          __floats2bfloat162_rn(acc[dt][2 * i], acc[dt][2 * i + 1]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+dkv_kernel_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Tq, int Tk,
+               int Hq, int Hkv, int causal, float scale) {
+  constexpr int DS = D + 8;
+  constexpr int KD = D / 16;
+  constexpr int NT = kMmaB / 8;   // 8-query column tiles of S^T and dP^T
+  constexpr int DT = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // kMmaB x DS
+  __nv_bfloat16* sV = sK + kMmaB * DS;
+  __nv_bfloat16* sQ = sV + kMmaB * DS;
+  __nv_bfloat16* sDO = sQ + kMmaB * DS;
+  float* sL = reinterpret_cast<float*>(sDO + kMmaB * DS);  // kMmaB
+  float* sDelta = sL + kMmaB;                               // kMmaB
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int k0 = blockIdx.x * kMmaB, hk = blockIdx.y, b = blockIdx.z;
+  const int group = Hq / Hkv;
+  const int rk = warp * 16 + g;  // this thread's keys: rk and rk + 8 of the tile
+  load_tile<D>(sK, k, k0, Tk, Hkv, b, hk);
+  load_tile<D>(sV, v, k0, Tk, Hkv, b, hk);
+
+  float gk[DT][4], gv[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gk[dt][e] = gv[dt][e] = 0.f;
+
+  const int qstart = causal ? (k0 / kMmaB) * kMmaB : 0;  // queries at or past k0
+  for (int gi = 0; gi < group; ++gi) {
+    const int h = hk * group + gi;
+    for (int q0 = qstart; q0 < Tq; q0 += kMmaB) {
+      __syncthreads();  // K and V are loaded; the previous q tile is consumed
+      load_tile<D>(sQ, q, q0, Tq, Hq, b, h);
+      load_tile<D>(sDO, dout, q0, Tq, Hq, b, h);
+      load_stats(sL, sDelta, lse, delta, q0, Tq, Hq, b, h);
+      __syncthreads();
+
+      // S^T = K Q^T and dP^T = V dO^T: rows are keys, columns queries.
+      float s[NT][4], dp[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+        uint32_t ak[4], av[4];
+        a_frag(ak, sK, DS, rk, kd * 16 + 2 * t4);
+        a_frag(av, sV, DS, rk, kd * 16 + 2 * t4);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const __nv_bfloat16* pq = sQ + (n * 8 + g) * DS + kd * 16 + 2 * t4;
+          const __nv_bfloat16* pd = sDO + (n * 8 + g) * DS + kd * 16 + 2 * t4;
+          mma_16816(s[n], ak, ld_pair(pq), ld_pair(pq + 8));
+          mma_16816(dp[n], av, ld_pair(pd), ld_pair(pd + 8));
+        }
+      }
+      // P^T over s, dS^T over dp.
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = n * 8 + 2 * t4 + (e & 1), t = q0 + c, key = k0 + rk + 8 * (e >> 1);
+          float p = 0.f;
+          if (t < Tq && key < Tk && !(causal && key > t)) p = expf(s[n][e] * scale - sL[c]);
+          s[n][e] = p;
+          dp[n][e] = p * (dp[n][e] - sDelta[c]) * scale;
+        }
+      mma_rows_by_tile<D>(gv, s, sDO, lane);  // dV += P^T dO
+      mma_rows_by_tile<D>(gk, dp, sQ, lane);  // dK += dS^T Q
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = k0 + rk + 8 * i;
+    if (t >= Tk) continue;
+    const size_t off = ((size_t)(b * Tk + t) * Hkv + hk) * D + 2 * t4;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + dt * 8) =
+          __floats2bfloat162_rn(gk[dt][2 * i], gk[dt][2 * i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + dt * 8) =
+          __floats2bfloat162_rn(gv[dt][2 * i], gv[dt][2 * i + 1]);
+    }
+  }
+}
+
+// --------------------------------------------------------------- launch
+
+template <int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* delta, void* dq, int B, int Tq, int Tk, int Hq, int Hkv, int causal,
+              float scale, cudaStream_t stream) {
+  constexpr size_t smem = dq_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(dq_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((Tq + kBQ - 1) / kBQ, Hq, B);
+  using F = float;
+  dq_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const F*>(q), static_cast<const F*>(k), static_cast<const F*>(v),
+      static_cast<const F*>(dout), static_cast<const F*>(lse), static_cast<const F*>(delta),
+      static_cast<F*>(dq), Tq, Tk, Hq, Hkv, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+               const void* delta, void* dk, void* dv, int B, int Tq, int Tk, int Hq, int Hkv,
+               int causal, float scale, cudaStream_t stream) {
+  constexpr size_t smem = dkv_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(dkv_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((Tk + kBK - 1) / kBK, Hkv, B);
+  using F = float;
+  dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const F*>(q), static_cast<const F*>(k), static_cast<const F*>(v),
+      static_cast<const F*>(dout), static_cast<const F*>(lse), static_cast<const F*>(delta),
+      static_cast<F*>(dk), static_cast<F*>(dv), Tq, Tk, Hq, Hkv, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dq_mma(const void* q, const void* k, const void* v, const void* dout,
+                  const void* lse, const void* delta, void* dq, int B, int Tq, int Tk, int Hq,
+                  int Hkv, int causal, float scale, cudaStream_t stream) {
+  constexpr size_t smem = mma_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(dq_kernel_mma<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  using bf = __nv_bfloat16;
+  dim3 grid((Tq + kMmaB - 1) / kMmaB, Hq, B);
+  dq_kernel_mma<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
+      static_cast<const bf*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf*>(dq), Tq, Tk, Hq, Hkv, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dkv_mma(const void* q, const void* k, const void* v, const void* dout,
+                   const void* lse, const void* delta, void* dk, void* dv, int B, int Tq,
+                   int Tk, int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
+  constexpr size_t smem = mma_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(dkv_kernel_mma<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  using bf = __nv_bfloat16;
+  dim3 grid((Tk + kMmaB - 1) / kMmaB, Hkv, B);
+  dkv_kernel_mma<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
+      static_cast<const bf*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf*>(dk), static_cast<bf*>(dv), Tq, Tk, Hq,
+      Hkv, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+using DqFn = int (*)(const void*, const void*, const void*, const void*, const void*,
+                     const void*, void*, int, int, int, int, int, int, float, cudaStream_t);
+using DkvFn = int (*)(const void*, const void*, const void*, const void*, const void*,
+                      const void*, void*, void*, int, int, int, int, int, int, float,
+                      cudaStream_t);
+
+// float32 -> the scalar kernels, bfloat16 -> the tensor-core kernels.
+DqFn pick_dq(int dtype, int D) {
+  if (dtype == 0) {
+    switch (D) {
+      case 16: return launch_dq<16>;
+      case 64: return launch_dq<64>;
+      case 128: return launch_dq<128>;
+    }
+  } else if (dtype == 1) {
+    switch (D) {
+      case 16: return launch_dq_mma<16>;
+      case 64: return launch_dq_mma<64>;
+      case 128: return launch_dq_mma<128>;
+    }
+  }
+  return nullptr;
+}
+
+DkvFn pick_dkv(int dtype, int D) {
+  if (dtype == 0) {
+    switch (D) {
+      case 16: return launch_dkv<16>;
+      case 64: return launch_dkv<64>;
+      case 128: return launch_dkv<128>;
+    }
+  } else if (dtype == 1) {
+    switch (D) {
+      case 16: return launch_dkv_mma<16>;
+      case 64: return launch_dkv_mma<64>;
+      case 128: return launch_dkv_mma<128>;
+    }
+  }
+  return nullptr;
+}
+
+}  // namespace
+
+// q, dout, dq (B,Tq,Hq,D); k, v (B,Tk,Hkv,D); all contiguous and of one type
+// (dtype 0: float32, 1: bfloat16); lse and delta (B,Hq,Tq) float32. Each
+// function launches one kernel and returns a cudaError_t, or -1 for an
+// unsupported head dim or type.
+extern "C" int flash_attention_dq(const void* q, const void* k, const void* v,
+                                  const void* dout, const void* lse, const void* delta,
+                                  void* dq, int B, int Tq, int Tk, int Hq, int Hkv, int D,
+                                  int causal, float scale, int dtype, void* stream) {
+  const DqFn f = pick_dq(dtype, D);
+  if (f == nullptr) return -1;
+  return f(q, k, v, dout, lse, delta, dq, B, Tq, Tk, Hq, Hkv, causal, scale,
+           static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int flash_attention_dkv(const void* q, const void* k, const void* v,
+                                   const void* dout, const void* lse, const void* delta,
+                                   void* dk, void* dv, int B, int Tq, int Tk, int Hq, int Hkv,
+                                   int D, int causal, float scale, int dtype, void* stream) {
+  const DkvFn f = pick_dkv(dtype, D);
+  if (f == nullptr) return -1;
+  return f(q, k, v, dout, lse, delta, dk, dv, B, Tq, Tk, Hq, Hkv, causal, scale,
+           static_cast<cudaStream_t>(stream));
+}

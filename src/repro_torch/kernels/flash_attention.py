@@ -1,11 +1,16 @@
-"""Flash attention forward on the card: the CUDA kernel of
+"""Flash attention on the card: the forward kernel of
 ``csrc/flash_attention.cu`` (replaces ``repro/kernels/flash_attention.py::
-_fwd_kernel``), and its plain version ``ref.attention`` beside it.
+_fwd_kernel``) and the dQ and dK/dV kernels of ``csrc/flash_attention_bwd.cu``
+(replace ``_dq_kernel`` and ``_dkv_kernel``), with their plain versions
+``ref.attention`` and ``ref.attention_bwd`` beside them.
 
-The source note in the ``.cu`` file says what bounds the kernel and how it is
-built. The backward kernels (``_dq_kernel``, ``_dkv_kernel``) and the
-``autograd.Function`` around this forward are the training slice
-(ROADMAP queue B).
+``FlashAttentionFn`` is the ``torch.autograd.Function`` that training goes
+through, the counterpart of the ``jax.custom_vjp`` in ``repro/kernels/
+ops.py``: its forward launches the forward kernel and saves q, k, v, o and
+lse; its backward takes delta = rowsum(dO * O) from the saved o as PyTorch
+(JAX also does that outside its kernels) and launches the dQ kernel and the
+dK/dV kernel once each. The source notes in the ``.cu`` files say what
+bounds each kernel and how it is built.
 """
 from __future__ import annotations
 
@@ -18,9 +23,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import attention as plain  # noqa: F401  (the plain version)
+from repro_torch.kernels import ref  # ref.attention, ref.attention_dq / _dkv: the plain versions
 
-launches = collections.Counter()  # "flash_attention": kernel launches
+launches = collections.Counter()  # kernel launches by name (see ops.KERNELS)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 64, 128)
 
@@ -32,6 +37,17 @@ def _lib() -> ctypes.CDLL:
     lib.flash_attention_fwd.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I,
                                         ctypes.c_float, I, P]
     lib.flash_attention_fwd.restype = I
+    return lib
+
+
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.library("flash_attention_bwd")
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_attention_dq.argtypes = [P] * 7 + [I] * 7 + [F, I, P]
+    lib.flash_attention_dq.restype = I
+    lib.flash_attention_dkv.argtypes = [P] * 8 + [I] * 7 + [F, I, P]
+    lib.flash_attention_dkv.restype = I
     return lib
 
 
@@ -86,3 +102,87 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, q_offset=None,
         raise RuntimeError(f"flash_attention_fwd launch failed (error {rc})")
     launches["flash_attention"] += 1
     return o, lse
+
+
+def _check_bwd(q, k, v, do, lse, delta):
+    B, Tq, Hq, D = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    check_cuda("flash_attention_bwd", q, k, v, do)
+    if k.shape != (B, Tk, Hkv, D) or v.shape != k.shape or do.shape != q.shape or Hq % Hkv:
+        raise ValueError(f"flash_attention_bwd: bad shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)} v {tuple(v.shape)} do {tuple(do.shape)}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (B, Hq, Tq) or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"flash_attention_bwd: {name} must be contiguous (B, Hq, Tq) "
+                             f"float32, got {tuple(t.shape)} {t.dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: head dim {D} not in {HEAD_DIMS}")
+
+
+def _bwd_args(q, k, causal, scale):
+    B, Tq, Hq, D = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    return (B, Tq, k.shape[1], Hq, k.shape[2], D, int(causal), scale, DTYPES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def launch_dq(q, k, v, do, lse, delta, *, causal: bool = True,
+              scale: Optional[float] = None) -> torch.Tensor:
+    """One launch of the dQ kernel; lse and delta (B, Hq, Tq) fp32."""
+    _check_bwd(q, k, v, do, lse, delta)
+    dq = torch.empty_like(q)
+    rc = _bwd_lib().flash_attention_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                                       lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                                       *_bwd_args(q, k, causal, scale))
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_dq launch failed (error {rc})")
+    launches["flash_attention_dq"] += 1
+    return dq
+
+
+def launch_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
+               scale: Optional[float] = None):
+    """One launch of the dK/dV kernel; returns (dk, dv)."""
+    _check_bwd(q, k, v, do, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    rc = _bwd_lib().flash_attention_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                        do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                                        dk.data_ptr(), dv.data_ptr(),
+                                        *_bwd_args(q, k, causal, scale))
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_dkv launch failed (error {rc})")
+    launches["flash_attention_dkv"] += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        scale: Optional[float] = None):
+    """Gradients (dq, dk, dv) of the uncached forward (no q_offset or
+    kv_len) from its saved o and lse (B, Hq, Tq) fp32: delta as a PyTorch
+    reduction over ``o`` as saved (bf16 on the training path, as in JAX),
+    then one launch of the dQ kernel and one of the dK/dV kernel."""
+    if o.shape != q.shape or o.dtype != q.dtype:
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} {o.dtype} for q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    delta = ref.attention_delta(o, do).contiguous()
+    dq = launch_dq(q, k, v, do, lse, delta, causal=causal, scale=scale)
+    dk, dv = launch_dkv(q, k, v, do, lse, delta, causal=causal, scale=scale)
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Uncached flash attention with its gradient on the card's kernels:
+    ``FlashAttentionFn.apply(q, k, v, causal)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(), causal=ctx.causal)
+        return dq, dk, dv, None

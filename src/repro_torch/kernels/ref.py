@@ -48,6 +48,64 @@ def attention(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
     return o.reshape(B, Tq, Hq, D).to(q.dtype)
 
 
+def attention_delta(o, do):
+    """delta = rowsum(dO * O), (B, Hq, Tq) fp32, from ``o`` in its own type
+    (JAX takes it outside its kernels, ``flash_attention.py:200-202``)."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2)
+
+
+def _bwd_scores(q, k, v, do, lse, delta, causal, scale):
+    """The recomputed probabilities p = exp(s - lse) and ds = p * (dp - delta)
+    * scale, (B, Hkv, group, Tq, Tk), with the fp32 operands."""
+    B, Tq, Hq, D = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    qf = q.float().reshape(B, Tq, Hkv, group, D)
+    kf, vf = k.float(), v.float()
+    dof = do.float().reshape(B, Tq, Hkv, group, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf * scale, kf)
+    if causal:
+        mask = torch.arange(Tq, device=q.device)[:, None] >= torch.arange(Tk, device=q.device)
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s - lse.float().reshape(B, Hkv, group, Tq)[..., None])
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
+    ds = p * (dp - delta.float().reshape(B, Hkv, group, Tq)[..., None]) * scale
+    return qf, kf, dof, p, ds
+
+
+def attention_dq(q, k, v, do, lse, delta, *, causal: bool = True,
+                 scale: Optional[float] = None):
+    """dQ = dS K: the plain version of the dQ kernel (``_dq_kernel``)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    _, kf, _, _, ds = _bwd_scores(q, k, v, do, lse, delta, causal, scale)
+    return torch.einsum("bhgqk,bkhd->bqhgd", ds, kf).reshape(q.shape).to(q.dtype)
+
+
+def attention_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
+                  scale: Optional[float] = None):
+    """dK = dS^T Q (q unscaled), dV = P^T dO, summed over each KV head's
+    query group: the plain version of the dK/dV kernel (``_dkv_kernel``)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    qf, _, dof, p, ds = _bwd_scores(q, k, v, do, lse, delta, causal, scale)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                  scale: Optional[float] = None):
+    """Gradients (dq, dk, dv) of ``attention`` (no q_offset / kv_len) from
+    the forward's saved ``o`` and ``lse`` (B, Hq, Tq): the plain version of
+    the two backward kernels, step by step as ``repro/kernels/
+    flash_attention.py::_dq_kernel`` / ``_dkv_kernel``: p = exp(s - lse),
+    ds = p * (dp - delta) * scale, dK from the unscaled q. GQA is indexed
+    (kv head = h // group). Outputs take the types of q, k and v."""
+    delta = attention_delta(o, do)
+    dq = attention_dq(q, k, v, do, lse, delta, causal=causal, scale=scale)
+    dk, dv = attention_dkv(q, k, v, do, lse, delta, causal=causal, scale=scale)
+    return dq, dk, dv
+
+
 def decode_attention(q, k, v, kv_len, *, scale: Optional[float] = None):
     """Single-token decode: q (B, Hq, D); k, v (B, S, Hkv, D); kv_len (B,)."""
     B, Hq, D = q.shape
@@ -84,3 +142,16 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     xf = x.float()
     ms = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+
+
+def rmsnorm_bwd(x, scale, dy, eps: float = 1e-6):
+    """Gradients (dx, dscale) of ``rmsnorm``, written out: with
+    r = rsqrt(mean(x^2) + eps) and g = dy * scale,
+    dx = r * g - x * r^3 * mean(g * x) and dscale = sum over rows of dy * x * r,
+    in fp32, returned in the types of x and scale."""
+    xf, dyf = x.float(), dy.float()
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    g = dyf * scale.float()
+    dx = r * g - xf * r.pow(3) * torch.mean(g * xf, dim=-1, keepdim=True)
+    ds = (dyf * xf * r).reshape(-1, x.shape[-1]).sum(0)
+    return dx.to(x.dtype), ds.to(scale.dtype)

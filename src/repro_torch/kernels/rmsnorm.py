@@ -12,6 +12,11 @@ with a copy, while this one masks the ragged last block. Triton expresses the
 row reduction plus the elementwise scale directly; a CUDA kernel would not
 change what bounds it.
 
+``RMSNormFn`` is the ``torch.autograd.Function`` that training goes through:
+its forward is this kernel, its backward the plain ``ref.rmsnorm_bwd`` (the
+TPU package had no RMSNorm backward kernel either: training differentiated
+its plain path, ``repro/kernels/ops.py``).
+
 ``triton`` is imported at the first launch, so the module imports on a
 machine without it; the kernel body below is compiled by ``triton.jit``
 then and never runs as Python.
@@ -24,6 +29,7 @@ import functools
 import torch
 
 from repro_torch.kernels.flash_attention import DTYPES
+from repro_torch.kernels import ref
 from repro_torch.kernels.ref import rmsnorm as plain  # noqa: F401  (the plain version)
 
 launches = collections.Counter()  # "rmsnorm": kernel launches
@@ -71,3 +77,20 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Te
                  num_warps=8 if block_d >= 2048 else 4)
     launches["rmsnorm"] += 1
     return o
+
+
+class RMSNormFn(torch.autograd.Function):
+    """``RMSNormFn.apply(x, scale, eps)``: the kernel forward, the plain
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps: float):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rmsnorm(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = ref.rmsnorm_bwd(x, scale, dy, ctx.eps)
+        return dx, dscale, None

@@ -9,9 +9,9 @@ Conventions:
 Softmax/norm statistics are computed in fp32 regardless of compute dtype.
 
 RMSNorm, qk-norm and attention go through ``kernels/ops.py``: the plain
-PyTorch versions for CPU tensors, the hand-written kernels for CUDA ones.
-This slice is forward only: no ``embed_lookup`` backward, no autograd
-through the kernels (the training slice, ROADMAP queue A).
+PyTorch versions for CPU tensors, the hand-written kernels for CUDA ones,
+differentiable on both. ``embed_lookup`` has the fp32 scatter-add backward
+of ``repro.models.layers.embed_lookup``.
 """
 from __future__ import annotations
 
@@ -209,9 +209,27 @@ def apply_ffn(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 # ----------------------------------------------------------------- embedding
 
 
+class _EmbedLookup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.shape, ctx.dtype = table.shape, table.dtype
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, dout):
+        (tokens,) = ctx.saved_tensors
+        flat = dout.reshape(-1, ctx.shape[-1]).float()
+        dtable = torch.zeros(ctx.shape, dtype=torch.float32, device=dout.device)
+        dtable.index_add_(0, tokens.reshape(-1), flat)
+        return dtable.to(ctx.dtype), None
+
+
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """table[tokens] (forward only in this slice)."""
-    return table[tokens]
+    """table[tokens] with an explicit fp32 scatter-add backward: the
+    gradient rows are summed into an fp32 table and cast to the table's
+    type once, as ``repro.models.layers.embed_lookup`` does."""
+    return _EmbedLookup.apply(table, tokens)
 
 
 def init_embedding(cfg: ArchConfig, gen: torch.Generator, dtype=torch.bfloat16) -> Params:

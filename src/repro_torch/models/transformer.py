@@ -3,17 +3,29 @@
 
 Parameters keep the JAX layout: every leaf of a layer group is stacked over
 a leading group dim (``init_stack``), so a JAX tree converts leaf by leaf.
-JAX's ``lax.scan`` over the groups becomes a Python loop over that dim.
+JAX's ``lax.scan`` over the groups becomes a Python loop over that dim
+(each stacked leaf is unbound once, so its gradient is stacked once).
 MoE and SSM blocks (jamba, xlstm, MoE archs) are ROADMAP queue A and raise.
+
+Training rematerialises each layer group as ``cfg.remat`` says, like the
+``jax.checkpoint`` of ``repro.models.transformer.apply_stack``, through
+``torch.utils.checkpoint`` (non-reentrant): "full" saves nothing but the
+group's inputs, "dots" also saves the matmul outputs (a selective-checkpoint
+policy, JAX's ``checkpoint_dots``), "none" saves every activation. The
+backward of a rematerialised group reruns its forward, so the attention and
+RMSNorm kernels launch twice per layer and training step.
 
 Block structure:
   attn:   x += Attn(norm(x));  x += FFN(norm(x))    (if d_ff > 0)
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
@@ -115,6 +127,17 @@ def init_stack_cache(cfg: ArchConfig, batch: int, max_len: int, device,
     return out
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_CONTEXT_FN = {"dots": functools.partial(create_selective_checkpoint_contexts, _save_dots)}
+
+
 def apply_stack(
     cfg: ArchConfig,
     stack_params: Params,
@@ -123,15 +146,31 @@ def apply_stack(
     positions: Optional[torch.Tensor] = None,
     caches: Optional[Params] = None,
     cache_pos: Optional[int] = None,
+    train: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Runs every layer group in order. Caches are updated in place (each
     group's slice of the stacked cache is a view), so the returned caches
-    are the ones passed in."""
+    are the ones passed in. ``train`` rematerialises each group per
+    ``cfg.remat`` (uncached calls only)."""
     sig = period_signature(cfg)
-    for g in range(n_groups(cfg)):
-        gp = _map(lambda a: a[g], stack_params)
+    unbound = _map(lambda a: a.unbind(0), stack_params)
+
+    def group_body(gp, x, g):
         for j, (kind, is_moe) in enumerate(sig):
             gc = None if caches is None else _map(lambda a: a[g], caches[f"b{j}"])
             x, _ = apply_block(cfg, kind, is_moe, gp[f"b{j}"], x, positions=positions,
                                cache=gc, cache_pos=cache_pos)
+        return x
+
+    remat = train and caches is None and cfg.remat != "none"
+    if remat and cfg.remat not in ("dots", "full"):
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    for g in range(n_groups(cfg)):
+        gp = _map(lambda t: t[g], unbound)
+        if remat:
+            ctx = _CONTEXT_FN.get(cfg.remat)
+            x = checkpoint(group_body, gp, x, g, use_reentrant=False,
+                           **({"context_fn": ctx} if ctx else {}))
+        else:
+            x = group_body(gp, x, g)
     return x, caches

@@ -3,14 +3,17 @@ init_cache / prefill / decode_step. Port of ``repro/models/zoo.py`` with the
 same batch conventions and the same default dtype (bf16):
 
   forward: {"tokens": (B,T) int}                      -> (logits, aux)
+  loss:    {"tokens", "labels": (B,T) int, "loss_mask"?} -> (loss, metrics)
   prefill: {"tokens"| "embeddings"}                   -> (last_logits, cache)
   decode:  {"tokens": (B,1)}, cache                   -> (logits,      cache)
 
 ``Model`` is an ``nn.Module`` that owns its parameter tree (JAX layout, see
 ``transformer.init_stack``) once ``init`` or ``load`` has run; every method
 still takes ``params`` first, as in JAX, so a converted JAX tree can be
-passed directly. The cache's ``pos`` is a Python int: one position for the
-whole batch, as in ``repro``. Cached steps update the cache in place.
+passed directly; training differentiates such a tree of detached leaves
+with ``torch.autograd.grad`` (``runtime/spmd.py``), as JAX differentiates
+its functional loss. The cache's ``pos`` is a Python int: one position for
+the whole batch, as in ``repro``. Cached steps update the cache in place.
 """
 from __future__ import annotations
 
@@ -100,13 +103,29 @@ class Model(nn.Module):
 
     # -------------------------------------------------------------- forward
 
-    def forward(self, params: Params, batch: Dict[str, torch.Tensor]
+    def forward(self, params: Params, batch: Dict[str, torch.Tensor], train: bool = False
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         h = self._embed(params, batch)
-        h, _ = T.apply_stack(self.cfg, params["stack"], h)
+        h, _ = T.apply_stack(self.cfg, params["stack"], h, train=train)
         h = L.apply_norm(self.cfg, params["final_norm"], h)
         aux = {k: torch.zeros((), device=h.device) for k in AUX_KEYS}
         return self._head(params, h), aux
+
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Mean next-token cross entropy in fp32 (over ``loss_mask`` when
+        given) plus the aux losses: ``repro.models.zoo.Model.loss``."""
+        logits, aux = self.forward(params, batch, train=True)
+        labels = batch["labels"].long()
+        lf = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(lf, -1, labels[..., None])[..., 0]
+        mask = batch.get("loss_mask")
+        if mask is None:
+            ce = nll.mean()
+        else:
+            ce = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        total = ce + sum(aux.values())
+        return total, {"ce": ce, **aux}
 
     # -------------------------------------------------------------- serving
 

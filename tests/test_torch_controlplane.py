@@ -73,3 +73,18 @@ def test_jax_link_rng_backend_is_refused():
     with pytest.raises(ValueError, match="jax"):
         rng.next("a", "b")
     assert 0.0 <= VectorLinkRNG(seed=0).next("a", "b") < 1.0
+
+
+def test_snapshot_store_copy_has_not_drifted():
+    """The port's checkpoint module carries repro's SnapshotStore verbatim
+    (with repro. -> repro_torch.); the rest of that module is its own."""
+    import ast
+
+    def class_text(path):
+        src = path.read_text()
+        node = next(n for n in ast.parse(src).body
+                    if isinstance(n, ast.ClassDef) and n.name == "SnapshotStore")
+        return ast.get_source_segment(src, node)
+
+    want = class_text(SRC / "repro" / "checkpoint" / "manager.py").replace("repro.", "repro_torch.")
+    assert class_text(SRC / "repro_torch" / "checkpoint" / "manager.py") == want

@@ -94,3 +94,22 @@ def test_chip_smoke_refuses_a_machine_without_gpu():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_trainer_without_device_raises_on_a_machine_without_gpu():
+    _require_no_gpu()
+    from repro_torch.configs import registry
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = TrainerConfig(arch=registry.get("qwen3-1.7b", reduced=True), steps=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        Trainer(cfg)
+    assert Trainer(TrainerConfig(arch=cfg.arch, steps=1, device="cpu")).model.device.type == "cpu"
+
+
+def test_train_launcher_refuses_missing_cuda():
+    _require_no_gpu()
+    from repro_torch.launch import train
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "1"])

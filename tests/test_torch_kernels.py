@@ -168,3 +168,88 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         decode_attention.decode_attention(t[:, 0], t, t, 2)
     with pytest.raises(ValueError, match="CUDA"):
         rmsnorm.rmsnorm(t, torch.ones(16))
+
+
+# ---------------------------------------------------------------- backward
+
+GRAD_TOL = dict(atol=5e-4, rtol=1e-2)  # tests/test_kernels.py's gradient tolerance
+BWD_CASES = [  # B, T, Hq, Hkv, D, causal
+    (2, 64, 4, 2, 16, True),      # GQA group 2
+    (1, 96, 4, 1, 64, True),      # MQA
+    (2, 48, 2, 2, 16, False),     # non-causal
+    (1, 77, 4, 2, 64, True),      # ragged T
+]
+
+
+def _jax_grads(q, k, v, do, causal):
+    _, vjp = jax.vjp(lambda a, b, c: jref.attention(a, b, c, causal=causal),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return vjp(jnp.asarray(do))
+
+
+@pytest.mark.parametrize("B,T,Hq,Hkv,D,causal", BWD_CASES)
+def test_flash_attention_grads_match_jax(B, T, Hq, Hkv, D, causal):
+    """ops.flash_attention's gradients on the CPU (autograd through the plain
+    version) against jax.grad of repro.kernels.ref.attention."""
+    q, k, v, do = _arrays(11, (B, T, Hq, D), (B, T, Hkv, D), (B, T, Hkv, D), (B, T, Hq, D))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    out = ops.flash_attention(*leaves, causal=causal)
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(do))
+    for g, w in zip(got, _jax_grads(q, k, v, do, causal)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("B,T,Hq,Hkv,D,causal", BWD_CASES)
+def test_attention_bwd_matches_jax(B, T, Hq, Hkv, D, causal):
+    """The plain version of the dQ and dK/dV kernels (what chip_smoke.py
+    holds them to on the card), from o and lse, against jax.grad."""
+    from repro_torch.kernels.ref import attention_bwd
+
+    q, k, v, do = _arrays(12, (B, T, Hq, D), (B, T, Hkv, D), (B, T, Hkv, D), (B, T, Hq, D))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    o = ops.flash_attention(tq, tk, tv, causal=causal)
+    group, scale = Hq // Hkv, 1.0 / np.sqrt(D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", (tq * scale).reshape(B, T, Hkv, group, D), tk)
+    if causal:
+        s = torch.where(torch.ones(T, T, dtype=torch.bool).tril(), s, -1e30)
+    lse = torch.logsumexp(s, dim=-1).reshape(B, Hq, T)
+    got = attention_bwd(tq, tk, tv, o, lse, torch.from_numpy(do), causal=causal)
+    for g, w in zip(got, _jax_grads(q, k, v, do, causal)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **GRAD_TOL)
+
+
+def test_rmsnorm_bwd_matches_jax():
+    """The written-out RMSNorm backward (the backward of RMSNormFn on the
+    card) against jax.grad of repro.kernels.ref.rmsnorm."""
+    from repro_torch.kernels.ref import rmsnorm_bwd
+
+    x, scale, dy = _arrays(13, (3, 10, 64), (64,), (3, 10, 64))
+    _, vjp = jax.vjp(jref.rmsnorm, jnp.asarray(x), jnp.asarray(scale))
+    want = vjp(jnp.asarray(dy))
+    got = rmsnorm_bwd(*(torch.from_numpy(a) for a in (x, scale, dy)))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5, rtol=1e-4)
+
+
+def test_cpu_autograd_keeps_the_graph_and_launches_nothing():
+    ops.reset_launches()
+    q, k = _arrays(14, (1, 8, 2, 16), (1, 8, 2, 16))
+    tq, tk = (torch.from_numpy(a).requires_grad_(True) for a in (q, k))
+    out = ops.flash_attention(tq, tk, tk)
+    y = ops.rmsnorm(tq, torch.ones(16, requires_grad=True))
+    assert out.grad_fn is not None and y.grad_fn is not None
+    (out.sum() + y.sum()).backward()
+    assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
+
+
+def test_backward_wrappers_refuse_cpu_tensors():
+    from repro_torch.kernels import flash_attention
+
+    t = torch.zeros(1, 4, 2, 16)
+    stats = torch.zeros(1, 2, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention.launch_dq(t, t, t, t, stats, stats)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention.launch_dkv(t, t, t, t, stats, stats)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention.flash_attention_bwd(t, t, t, t, stats, t)
