@@ -8,14 +8,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
   2. build the CUDA kernels from the repo's sources (one nvcc per source);
   3. hold every kernel against its plain PyTorch version on the card, at the
      serve and training paths' full-width shapes and at reduced ones (GQA
-     group 2, MQA, non-causal, ragged T and S, a kv_len that ends inside the
-     first split, head dims 16 / 64 / 128), in float32 (atol 1e-4: only the
-     order of sums differs) and bfloat16 (atol 2e-2, rtol 1e-2); hold the
-     autograd Functions (flash attention on K1 + K2 + K3, RMSNorm on K5)
-     against autograd of the plain versions and check that no kernel output
-     leaves the graph; then time each kernel at its full-width shape beside
-     its bound, its plain version and one PyTorch library call as a
-     yardstick (the port never calls that library function);
+     group 2, MQA, non-causal, Tq and Tk that are not multiples of K1's
+     128-row tiles, a kv_len that ends inside a key tile or the first split,
+     q_offset > 0 over a cache longer than kv_len, head dims 16 / 64 / 128,
+     RMSNorm rows of 16 / 64 / 100 / 128 / 2048 / 5000), in float32 (atol
+     1e-4: only the order of sums differs) and bfloat16 (atol 2e-2, rtol
+     1e-2); K1's lse too, against the plain logsumexp; hold the autograd
+     Functions (flash attention on K1 + K2 + K3, RMSNorm on K5) against
+     autograd of the plain versions and check that no kernel output leaves
+     the graph; then time each kernel at its full-width shape beside its
+     bound, its plain version and one PyTorch library call as a yardstick
+     (the port never calls that library function): CUDA events around the
+     call (ms) and the kernels' own device time from torch.profiler
+     (device_ms, library_device_ms);
   4. serve-path parity: qwen3-1.7b at full width with 2 layers in float32
      serves 2 ragged requests (prefill + 4 decode steps) on the card through
      the kernels and on the CPU through the plain versions; logits agree
@@ -111,6 +116,28 @@ class Timer:
         torch.cuda.synchronize()
         return statistics.median(a.elapsed_time(b) for a, b in times)
 
+    def device_ms(self, fn, reps: int = 10) -> float:
+        """Device time per call of the kernels ``fn`` launches, from
+        torch.profiler, each call after an L2 flush. The flush's kernel (the
+        one fill of a uint8 tensor) is left out by name; each other kernel
+        counts its mean time times its launches per call, so a record that
+        strays in from outside the window changes nothing. Unlike ``ms`` it
+        holds no host time between launches."""
+        from torch.profiler import ProfilerActivity, profile
+
+        for _ in range(3):  # a session that recorded none of fn's kernels is run again
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    self.flush.zero_()
+                    fn()
+                torch.cuda.synchronize()
+            got = [(e.self_device_time_total, e.count) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "FillFunctor<unsigned char>" not in e.key and e.count >= reps // 2]
+            if got:
+                return sum(us / n * round(n / reps) for us, n in got) / 1e3
+        fail("the profiler saw no kernel of a timed call in three sessions")
+
 
 def bound_ms(nbytes: float, ops: float, dtype) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -145,9 +172,14 @@ def check_kernels(dev, timer):
     errs = {"flash_attention": [], "decode_attention": [], "decode_combine": [], "rmsnorm": []}
     flash_cases = [  # B, Tq, Tk, Hq, Hkv, D, q_offset, kv_len, causal
         (B_SERVE, PROMPT, MAX_LEN, HQ, HKV, HD, 0, PROMPT, True),   # full-width prefill
-        (2, 61, 80, 4, 2, 16, 0, 61, True),                          # reduced prefill, ragged
-        (3, 77, 200, 8, 4, 64, [0, 5, 120], [77, 82, 197], True),    # cached multi-token step
-        (1, 100, 100, 4, 2, 64, None, None, False),                  # uncached, non-causal
+        (B_TRAIN, SEQ_TRAIN, SEQ_TRAIN, HQ, HKV, HD, None, None, True),  # full-width training
+        (2, 200, 333, 4, 2, 128, 0, 200, True),      # ragged Tq / Tk, kv_len inside a key tile
+        (2, 50, 300, 4, 2, 128, 130, 180, True),     # q_offset > 0, cache longer than kv_len
+        (3, 77, 200, 8, 4, 64, [0, 5, 120], [77, 82, 197], True),   # cached multi-token step
+        (2, 333, 333, 4, 1, 128, None, None, True),  # MQA, ragged
+        (1, 100, 100, 4, 2, 64, None, None, False),  # uncached, non-causal
+        (2, 200, 333, 2, 2, 128, None, None, False), # MHA, non-causal, Tq != Tk
+        (2, 61, 80, 4, 2, 16, 0, 61, True),          # reduced prefill, D 16 (mma.sync kernel)
     ]
     decode_cases = [  # B, S, Hq, Hkv, D, kv_len
         (B_SERVE, MAX_LEN, HQ, HKV, HD, [DECODE_KV] * 7 + [5]),
@@ -155,7 +187,8 @@ def check_kernels(dev, timer):
         (2, 333, 8, 2, 64, [5, 333]),
     ]
     rms_cases = [(B_SERVE * PROMPT, D_MODEL), (B_SERVE, D_MODEL),
-                 (B_SERVE * PROMPT * HQ, HD), (B_SERVE * HKV, HD), (122, 16), (1000, 64)]
+                 (B_SERVE * PROMPT * HQ, HD), (B_SERVE * HKV, HD), (122, 16), (1000, 64),
+                 (333, 100), (7, 5000)]  # d not a multiple of 8; a row too long for registers
 
     def per_batch(x):  # a list becomes a (B,) tensor on the card; None and ints stay
         return torch.tensor(x, device=dev) if isinstance(x, list) else x
@@ -166,9 +199,13 @@ def check_kernels(dev, timer):
             q = randn(gen, (B, Tq, Hq, D), dtype)
             k, v = randn(gen, (B, Tk, Hkv, D), dtype), randn(gen, (B, Tk, Hkv, D), dtype)
             qo_t, kl_t = per_batch(qo), per_batch(kl)
-            o, _ = fa.flash_attention_fwd(q, k, v, causal=causal, q_offset=qo_t, kv_len=kl_t)
+            o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, q_offset=qo_t, kv_len=kl_t)
             want = ref.attention(q, k, v, causal=causal, q_offset=qo_t, kv_len=kl_t)
-            check(f"flash_attention B{B} Tq{Tq} Tk{Tk} Hq{Hq} Hkv{Hkv} D{D}", o, want, dtype,
+            tag = f"B{B} Tq{Tq} Tk{Tk} Hq{Hq} Hkv{Hkv} D{D} causal={causal}"
+            check(f"flash_attention {tag}", o, want, dtype, errs["flash_attention"])
+            # lse is fp32 from the same scores; bf16 inputs keep their tolerance.
+            check(f"flash_attention lse {tag}", lse,
+                  ref.attention_lse(q, k, causal=causal, q_offset=qo_t, kv_len=kl_t), dtype,
                   errs["flash_attention"])
         for B, S, Hq, Hkv, D, kl in decode_cases:
             q = randn(gen, (B, Hq, D), dtype)
@@ -200,11 +237,11 @@ def check_kernels(dev, timer):
     out.append(dict(
         name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:87",
-        ms=timer.ms(lambda: fa.flash_attention_fwd(q, k, v, q_offset=0, kv_len=PROMPT)),
-        plain_ms=timer.ms(lambda: ref.attention(q, k, v, q_offset=0, kv_len=PROMPT), reps=5),
-        library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
+        fn=lambda: fa.flash_attention_fwd(q, k, v, q_offset=0, kv_len=PROMPT),
+        plain=lambda: ref.attention(q, k, v, q_offset=0, kv_len=PROMPT), plain_reps=5,
+        library=lambda: F.scaled_dot_product_attention(
             q.transpose(1, 2), k[:, :PROMPT].transpose(1, 2), v[:, :PROMPT].transpose(1, 2),
-            is_causal=True, enable_gqa=True)),
+            is_causal=True, enable_gqa=True),
         bound=bound_ms(nbytes, 4 * HD * pairs, bf)))
     # K4: one decode step's attention, kv_len = DECODE_KV for the whole batch.
     qd = randn(gen, (B_SERVE, HQ, HD), bf)
@@ -212,11 +249,11 @@ def check_kernels(dev, timer):
     out.append(dict(
         name="decode_attention", route="cuda", source="src/repro_torch/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:62",
-        ms=timer.ms(lambda: dec.decode_attention(qd, k, v, DECODE_KV)),
-        plain_ms=timer.ms(lambda: ref.decode_attention(qd, k, v, DECODE_KV)),
-        library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
+        fn=lambda: dec.decode_attention(qd, k, v, DECODE_KV),
+        plain=lambda: ref.decode_attention(qd, k, v, DECODE_KV),
+        library=lambda: F.scaled_dot_product_attention(
             qd[:, :, None], k[:, :DECODE_KV].transpose(1, 2), v[:, :DECODE_KV].transpose(1, 2),
-            enable_gqa=True)),
+            enable_gqa=True),
         bound=bound_ms(nbytes, 4 * HD * HQ * B_SERVE * DECODE_KV, bf)))
     acc, m, l, kl32 = dec.decode_attention_splits(qd, k, v, DECODE_KV)
     nvalid = -(-DECODE_KV // dec.BLK_S)
@@ -224,27 +261,38 @@ def check_kernels(dev, timer):
     out.append(dict(
         name="decode_combine", route="cuda", source="src/repro_torch/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:89",
-        ms=timer.ms(lambda: dec.combine_splits(acc, m, l, kl32, out_dtype=bf)),
-        plain_ms=timer.ms(lambda: ref.combine_splits(acc, m, l, kl32, dec.BLK_S, bf)),
-        library_ms=None,
+        fn=lambda: dec.combine_splits(acc, m, l, kl32, out_dtype=bf),
+        plain=lambda: ref.combine_splits(acc, m, l, kl32, dec.BLK_S, bf), library=None,
         bound=bound_ms(nbytes, 3 * HD * B_SERVE * HQ * nvalid, torch.float32)))
     # K5: the prefill's norm1 / norm2 / final norm rows.
     x, s = randn(gen, (B_SERVE * PROMPT, D_MODEL), bf), randn(gen, (D_MODEL,), torch.float32)
     s_bf = s.to(bf)  # the fused library kernel wants the weight in x's type
     out.append(dict(
-        name="rmsnorm", route="triton", source="src/repro_torch/kernels/rmsnorm.py",
+        name="rmsnorm", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
         replaces="src/repro/kernels/rmsnorm.py:34",
-        ms=timer.ms(lambda: rms.rmsnorm(x, s)),
-        plain_ms=timer.ms(lambda: ref.rmsnorm(x, s)),
-        library_ms=timer.ms(lambda: F.rms_norm(x, (D_MODEL,), weight=s_bf, eps=1e-6)),
+        fn=lambda: rms.rmsnorm(x, s), plain=lambda: ref.rmsnorm(x, s),
+        library=lambda: F.rms_norm(x, (D_MODEL,), weight=s_bf, eps=1e-6),
         bound=bound_ms(2 * x.numel() * 2 + D_MODEL * 4, 4 * x.numel(), torch.float32)))
-    for e in out:
-        e["bound_ms"], e["bound_by"] = e.pop("bound")
-        e["max_abs_err"] = max(errs[e["name"]])
-        lib = "n/a" if e["library_ms"] is None else f"{e['library_ms']:.4f}"
-        log(f"  {e['name']}: {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms ({e['bound_by']}), "
-            f"plain {e['plain_ms']:.4f} ms, library {lib} ms")
-    return out
+    return [timed(e, timer, errs) for e in out]
+
+
+def timed(e, timer, errs):
+    """Fills a kernel entry's times from its callables: the kernel, its
+    plain version and the library call, by CUDA events (ms) and by the
+    profiler (device_ms); logs the line."""
+    fn, plain, library = e.pop("fn"), e.pop("plain"), e.pop("library")
+    e["ms"] = timer.ms(fn)
+    e["device_ms"] = timer.device_ms(fn)
+    e["plain_ms"] = timer.ms(plain, reps=e.pop("plain_reps", 15))
+    e["library_ms"] = None if library is None else timer.ms(library)
+    e["library_device_ms"] = None if library is None else timer.device_ms(library)
+    e["bound_ms"], e["bound_by"] = e.pop("bound")
+    e["max_abs_err"] = max(errs[e["name"]])
+    lib = ("n/a" if library is None else
+           f"{e['library_ms']:.4f} ms (device {e['library_device_ms']:.4f})")
+    log(f"  {e['name']}: {e['ms']:.4f} ms (device {e['device_ms']:.4f}), bound "
+        f"{e['bound_ms']:.4f} ms ({e['bound_by']}), plain {e['plain_ms']:.4f} ms, library {lib}")
+    return e
 
 
 def check_backward(dev, timer):
@@ -328,30 +376,25 @@ def check_backward(dev, timer):
     qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
     os_ = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
     dos = do.transpose(1, 2)
-    lib_ms = timer.ms(lambda: torch.autograd.grad(os_, (qs, ks, vs), dos, retain_graph=True))
+    sdpa_bwd = lambda: torch.autograd.grad(os_, (qs, ks, vs), dos, retain_graph=True)  # noqa: E731
     out = [
         dict(name="flash_attention_dq", route="cuda",
              source="src/repro_torch/csrc/flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention.py:207",
-             ms=timer.ms(lambda: fa.launch_dq(q, k, v, do, lse, delta)),
-             plain_ms=timer.ms(lambda: ref.attention_dq(q, k, v, do, lse, delta), reps=5),
-             library_ms=lib_ms,
+             fn=lambda: fa.launch_dq(q, k, v, do, lse, delta),
+             plain=lambda: ref.attention_dq(q, k, v, do, lse, delta), plain_reps=5,
+             library=sdpa_bwd,
              bound=bound_ms(2 * qbytes + 2 * kbytes + 2 * stat + qbytes, 6 * HD * pairs, bf)),
         dict(name="flash_attention_dkv", route="cuda",
              source="src/repro_torch/csrc/flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention.py:224",
-             ms=timer.ms(lambda: fa.launch_dkv(q, k, v, do, lse, delta)),
-             plain_ms=timer.ms(lambda: ref.attention_dkv(q, k, v, do, lse, delta), reps=5),
-             library_ms=lib_ms,
+             fn=lambda: fa.launch_dkv(q, k, v, do, lse, delta),
+             plain=lambda: ref.attention_dkv(q, k, v, do, lse, delta), plain_reps=5,
+             library=sdpa_bwd,
              bound=bound_ms(2 * qbytes + 2 * kbytes + 2 * stat + 2 * kbytes, 8 * HD * pairs, bf)),
     ]
-    for e in out:
-        e["bound_ms"], e["bound_by"] = e.pop("bound")
-        e["max_abs_err"] = max(errs[e["name"]])
-        log(f"  {e['name']}: {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms ({e['bound_by']}), "
-            f"plain {e['plain_ms']:.4f} ms, library (SDPA backward, dQ+dK+dV) "
-            f"{e['library_ms']:.4f} ms")
-    return out
+    log("  (library for both: SDPA's backward, dQ + dK + dV together)")
+    return [timed(e, timer, errs) for e in out]
 
 
 # ------------------------------------------------------------ phase 4
@@ -419,7 +462,7 @@ def serve(dev, card):
     tokens[3, :PROMPT - 1000] = 0  # request 3 holds 1000 tokens, left-padded with 0
     prompt = {"tokens": tokens}
 
-    # Warm-up at the same shapes (cuBLAS and Triton pick their kernels).
+    # Warm-up at the same shapes (cuBLAS picks its kernels).
     generate(prefill_fn, decode_fn, params, prompt, 2, dev)
 
     ops.reset_launches()
@@ -455,7 +498,7 @@ KERNEL_GROUPS = (  # (group, substrings of the CUDA kernel name)
     ("flash_attention_dkv", ("dkv_kernel",)),
     ("decode_attention", ("splits_kernel",)),
     ("decode_combine", ("combine_kernel",)),
-    ("rmsnorm", ("_rmsnorm_kernel",)),
+    ("rmsnorm", ("rmsnorm_kernel",)),
     ("matmul", ("gemm", "Gemm", "cutlass", "xmma", "nvjet", "sm90")),
     ("all_reduce", ("nccl", "AllReduce")),
 )
@@ -718,7 +761,7 @@ def main() -> int:
     for e in kernels:  # launches on the two main paths: one serve run + six train steps
         e["launches"] = serve_counts[e["name"]] + train_counts[e["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_device_ms")
     import torch.distributed as dist
 
     dist.destroy_process_group()  # the one-rank group of phases 7-9

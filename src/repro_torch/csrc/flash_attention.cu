@@ -3,7 +3,8 @@
 // Replaces src/repro/kernels/flash_attention.py::_fwd_kernel (TPU Pallas,
 // pallas_call at flash_attention.py:87). Same function: softmax(q k^T * scale)
 // v with an online softmax over key tiles, (m, l, acc) in fp32, masked scores
-// at NEG_INF = -1e30, o in the input type and lse = m + log(l) in fp32.
+// at NEG_INF = -1e30, o in the input type and lse = m + log(l) in fp32
+// (natural log: the backward kernels take exp(s * scale - lse)).
 //
 // What differs from the TPU kernel:
 // - The TPU carried (m, l, acc) across the sequential innermost grid axis.
@@ -17,23 +18,55 @@
 //   repro.models.layers.chunked_attention: query t of batch b is at position
 //   q_offset[b] + t, and keys at or past kv_len[b] are hidden. The key loop
 //   stops at kv_len and, when causal, at the tile's last query position, so
-//   tiles wholly above the diagonal or past kv_len are never loaded.
+//   tiles wholly above the diagonal or past kv_len are never loaded. One
+//   value for the whole batch comes as a scalar argument (null pointer), so
+//   the caller makes no (B,) tensor for it.
 //
 // What bounds it: at the prompt lengths of the serve path (T = 1024, D = 128)
 // attention is far above the card's ops-per-byte line, so it is bound by
-// operations, i.e. by the tensor cores. Two kernels, chosen by input type:
-// - bfloat16 (the serve path): fwd_kernel_mma. Four warps, each owning 16
-//   query rows, multiply on the tensor cores with mma.sync m16n8k16 (bf16 in,
-//   fp32 accumulate). Q fragments stay in registers for the whole key loop;
-//   the S = Q K^T accumulator is reused in registers as the A operand of
-//   P V (P rounded to bf16, as FlashAttention-2 does); V fragments come from
-//   row-major shared memory through ldmatrix.trans. Rows of shared memory are
-//   padded by 16 bytes so the fragment loads hit distinct banks. Not yet
-//   done: wgmma, TMA and double-buffered tile loads (later work).
+// operations, i.e. by the tensor cores. Three kernels, chosen by type and D:
+// - bfloat16, D = 64 and 128 (the serve and training paths):
+//   fwd_kernel_wgmma, in the FlashAttention-3 manner. Only wgmma reaches
+//   Hopper's tensor-core rate, and only if the tiles arrive while the
+//   previous ones are multiplied, so:
+//   * loads: Q, K and V come in through TMA, one 4-D tensor map per tensor
+//     over its (B, T, H, D) layout, in 64-column boxes with the 128-byte
+//     swizzle that wgmma reads without bank conflicts. TMA fills rows past
+//     T with zeros, so the ragged edges need no code (the masks stay).
+//   * pipeline: K and V sit in a ring of kStages = 3 stages with mbarrier
+//     full / empty pairs. One producer warp issues the loads and keeps the
+//     ring full; its warpgroup gives its registers to the consumers
+//     (setmaxnreg 24 / 240).
+//   * products: two consumer warpgroups of 64 query rows each, so a block
+//     covers 128 rows against 128-key tiles. S = Q K^T is wgmma with Q and
+//     K both read from shared memory (K-major). P is rounded to bf16 in
+//     registers, where the accumulator layout of S is already the A-operand
+//     layout of O += P V; V is the shared-memory B operand read MN-major
+//     (transpose bit set).
+//   * overlap: tile j's S is issued together with tile j-1's P V, and tile
+//     j's softmax runs while P V is on the tensor cores; the two
+//     warpgroups take turns to issue (named barriers), so one's softmax
+//     runs under the other's products.
+//   * softmax: the CUDA cores, not the tensor cores, bound a tile, so a
+//     tile that crosses neither kv_len nor the diagonal skips the mask and
+//     costs one FFMA and one ex2 per score (max over the raw scores, exp2
+//     domain); lse is converted back to the natural log.
+//   * epilogue: O / l goes in bf16 through the warpgroup's rows of the Q
+//     tile (swizzled) and leaves by TMA store, which also clips rows past Tq.
+//   * scheduling: the q-tile index is reversed, so the blocks with the most
+//     causal work start first and the short ones fill the tail.
+// - bfloat16, D = 16 (the reduced configs): fwd_kernel_mma, four warps of 16
+//   query rows on mma.sync m16n8k16 with synchronous tile loads. A 32-byte
+//   row is too narrow for the 128-byte swizzled tiles above, and the reduced
+//   configs are never timed.
 // - float32 (parity checks): fwd_kernel, scalar fp32 FMAs on the CUDA cores
 //   with the tiles converted to fp32 in shared memory, so the result differs
 //   from an fp32 reference only in the order of sums.
+//
+// The tensor-map encoder comes from the driver through
+// cudaGetDriverEntryPoint, so the library links against no libcuda.
 
+#include <cuda.h>  // CUtensorMap and its enums; no driver symbol is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -73,8 +106,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
            float* __restrict__ o, float* __restrict__ lse, const int* __restrict__ q_offset,
-           const int* __restrict__ kv_len, int Tq, int Tk, int Hq, int Hkv, int causal,
-           float scale) {
+           const int* __restrict__ kv_len, int off_s, int klen_s, int Tq, int Tk, int Hq,
+           int Hkv, int causal, float scale) {
   constexpr int DP = D + 1;
   constexpr int DC = D / 16;  // output columns per thread
   extern __shared__ float smem[];
@@ -86,9 +119,8 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
-  const int off = q_offset[b];
-  const int klen = min(kv_len[b], Tk);
-
+  const int off = q_offset ? q_offset[b] : off_s;
+  const int klen = min(kv_len ? kv_len[b] : klen_s, Tk);
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D, d = i % D, t = q0 + r;
     sQ[r * DP + d] =
@@ -192,7 +224,8 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
   }
 }
 
-// ---------------------------------------------------------------- bf16 path
+
+// ------------------------------------------------------ bfloat16, D = 16
 
 constexpr int kMmaBQ = 64;  // query rows per block: 16 per warp
 constexpr int kMmaBK = 64;  // keys per tile
@@ -258,8 +291,8 @@ __global__ void __launch_bounds__(kThreads)
 fwd_kernel_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
                float* __restrict__ lse, const int* __restrict__ q_offset,
-               const int* __restrict__ kv_len, int Tq, int Tk, int Hq, int Hkv, int causal,
-               float scale) {
+               const int* __restrict__ kv_len, int off_s, int klen_s, int Tq, int Tk, int Hq,
+               int Hkv, int causal, float scale) {
   constexpr int DS = D + 8;        // padded row stride (bf16) of every tile
   constexpr int KD = D / 16;       // k-steps of Q K^T over the head dim
   constexpr int NT = kMmaBK / 8;   // 8-key column tiles of S
@@ -273,9 +306,8 @@ fwd_kernel_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   const int g = lane / 4, t4 = lane % 4;  // fragment row group and column pair
   const int q0 = blockIdx.x * kMmaBQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
-  const int off = q_offset[b];
-  const int klen = min(kv_len[b], Tk);
-
+  const int off = q_offset ? q_offset[b] : off_s;
+  const int klen = min(kv_len ? kv_len[b] : klen_s, Tk);
   load_tile<D>(sQ, q, kMmaBQ, q0, Tq, Hq, b, h);
   __syncthreads();
   const int rq = warp * 16 + g;  // this thread's rows: rq and rq + 8
@@ -386,20 +418,556 @@ fwd_kernel_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   }
 }
 
+// ------------------------------------------------ bfloat16, D = 64 / 128
+
+constexpr int kWgBQ = 128;  // query rows per block: 64 per consumer warpgroup
+constexpr int kWgBK = 128;  // keys per tile
+constexpr int kStages = 3;  // K / V ring depth
+constexpr int kConsumers = 2;
+constexpr int kWgThreads = (kConsumers + 1) * 128;  // + one producer warpgroup
+constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
+
+// Shared memory, in bytes from a 1024-byte aligned base (the 128-byte
+// swizzle repeats every 8 rows of 128 bytes). Every tile is stored as D / 64
+// column blocks of (rows x 64) bf16, one TMA box each.
+template <int D>
+struct WgSmem {
+  static constexpr uint32_t q_bytes = kWgBQ * D * 2;
+  static constexpr uint32_t kv_bytes = kWgBK * D * 2;  // one K or V stage
+  static constexpr uint32_t k_off = q_bytes;
+  static constexpr uint32_t v_off = k_off + kStages * kv_bytes;
+  static constexpr uint32_t bar_off = v_off + kStages * kv_bytes;
+  // q_full, then k_full, v_full and empty per stage
+  static constexpr size_t total = bar_off + 8 * (1 + 3 * kStages) + 1024;
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(
+                   bar)
+               : "memory");
+}
+// Returns once the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a 4-D tensor map (coordinates innermost first) into shared
+// memory; completion is counted in bytes on the barrier.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// One box of shared memory to a 4-D tensor map; rows outside the tensor are
+// not written. Completion is tracked per thread with bulk groups.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte swizzled tile: start address,
+// leading and stride byte offsets (16-byte units), layout type 1 (128B).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until at most N committed groups of this warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from touching registers an asynchronous wgmma still
+// reads or writes: reads and writes of r cannot move across this point.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// Named barriers 1 and 2 order the two consumer warpgroups' products, 3 and
+// 4 gather each warpgroup before its output store (barrier 0 is
+// __syncthreads).
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kConsumers * 128) : "memory");
+}
+__device__ __forceinline__ void bar_sync_wg(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(kConsumers * 128) : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// d (64 x 128, fp32) = A (64 x 16, shared, K-major) * B (16 x 128, shared,
+// K-major), plus d when acc != 0.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d (64 x 128, fp32) += A (64 x 16, registers) * B (16 x 128, shared, MN-major).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 64, fp32) += A (64 x 16, registers) * B (16 x 64, shared, MN-major).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv_step(float (&acc)[D / 2], const uint32_t (&a)[4],
+                                              uint64_t b);
+template <>
+__device__ __forceinline__ void wgmma_pv_step<128>(float (&acc)[64], const uint32_t (&a)[4],
+                                                   uint64_t b) {
+  wgmma_rs_n128(acc, a, b);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv_step<64>(float (&acc)[32], const uint32_t (&a)[4],
+                                                  uint64_t b) {
+  wgmma_rs_n64(acc, a, b);
+}
+
+// V read MN-major: the 64-column blocks of D lie kWgBK * 128 bytes apart
+// (leading offset), groups of 8 keys 1024 bytes apart (stride offset).
+constexpr uint32_t kVLbo = kWgBK * 128, kVSbo = 1024;
+
+// S (64 x kWgBK) = Q K^T for one warpgroup: D / 16 k-steps of 32 bytes
+// inside each 128-byte column block of Q (its 64 rows) and K.
+template <int D>
+__device__ __forceinline__ void wgmma_qk(float (&sc)[kWgBK / 2], uint32_t sQw, uint32_t sK) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t qa = sQw + (kk / 4) * (kWgBQ * 128) + (kk % 4) * 32;
+    const uint32_t ka = sK + (kk / 4) * (kWgBK * 128) + (kk % 4) * 32;
+    wgmma_ss_n128(sc, sw128_desc(qa, 16, 1024), sw128_desc(ka, 16, 1024), kk);
+  }
+}
+
+// O += P V over kWgBK / 16 k-steps of 16 keys (2048 bytes of V each).
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&acc)[D / 2], const uint32_t (&pa)[kWgBK / 16][4],
+                                         uint32_t sV) {
+#pragma unroll
+  for (int kk = 0; kk < kWgBK / 16; ++kk)
+    wgmma_pv_step<D>(acc, pa[kk], sw128_desc(sV + kk * 2048, kVLbo, kVSbo));
+}
+
+// P in bf16, in the A-operand layout: the accumulator fragments of two
+// neighbouring 8-key column blocks make one 16-key k-step.
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[kWgBK / 16][4],
+                                       const float (&sc)[kWgBK / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < kWgBK / 16; ++kk) {
+    pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+  }
+}
+
+// One tile of the online softmax, in place: sc[i] holds the raw score of
+// row qpos0 + 8 * ((i >> 1) & 1) and key kbase + 8 * (i / 4) + (i & 1). Takes
+// the scores into the exp2 domain (x = s * sl2), masks them where the tile
+// crosses kv_len or the diagonal (as the fp32 kernel does), updates the
+// running max m, and leaves p = 2^(x - m) in sc, this thread's share of the
+// row sums in l and the factor for the previous accumulator in alpha. A tile
+// without masking takes the max of the raw scores (sl2 > 0 keeps the order)
+// and one FFMA per score before the exponential; the max and the sums run in
+// two chains per row.
+__device__ __forceinline__ void online_softmax(float (&sc)[kWgBK / 2], float (&m)[2],
+                                               float (&l)[2], float (&alpha)[2], bool need_mask,
+                                               int kbase, int qpos0, int Tk, int klen,
+                                               int causal, float sl2) {
+  float mx[2][2] = {{-INFINITY, -INFINITY}, {-INFINITY, -INFINITY}};
+  if (need_mask) {
+#pragma unroll
+    for (int i = 0; i < kWgBK / 2; ++i) {
+      const int kpos = kbase + 8 * (i / 4) + (i & 1);
+      const int qpos = qpos0 + 8 * ((i >> 1) & 1);
+      float x = sc[i] * sl2;
+      if (kpos >= Tk) {
+        x = -INFINITY;  // past the end of the cache: weight exactly 0
+      } else if ((causal && kpos > qpos) || kpos >= klen) {
+        x = kNegInf;
+      }
+      sc[i] = x;
+      mx[(i >> 1) & 1][(i >> 2) & 1] = fmaxf(mx[(i >> 1) & 1][(i >> 2) & 1], x);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kWgBK / 2; ++i)
+      mx[(i >> 1) & 1][(i >> 2) & 1] = fmaxf(mx[(i >> 1) & 1][(i >> 2) & 1], sc[i]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) mx[r][c] *= sl2;
+  }
+  float neg_m[2], ls[2][2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m[r], quad_max(fmaxf(mx[r][0], mx[r][1])));
+    alpha[r] = ex2(m[r] - m_new);
+    m[r] = m_new;
+    neg_m[r] = -m_new;
+    ls[r][0] = l[r] * alpha[r];
+    ls[r][1] = 0.f;
+  }
+  if (need_mask) {
+#pragma unroll
+    for (int i = 0; i < kWgBK / 2; ++i) sc[i] = ex2(sc[i] + neg_m[(i >> 1) & 1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kWgBK / 2; ++i) sc[i] = ex2(fmaf(sc[i], sl2, neg_m[(i >> 1) & 1]));
+  }
+#pragma unroll
+  for (int i = 0; i < kWgBK / 2; ++i) ls[(i >> 1) & 1][(i >> 2) & 1] += sc[i];
+  l[0] = ls[0][0] + ls[0][1];
+  l[1] = ls[1][0] + ls[1][1];
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
+                 float* __restrict__ lse, const int* __restrict__ q_offset,
+                 const int* __restrict__ kv_len, int off_s, int klen_s, int Tq, int Tk, int Hq,
+                 int Hkv, int causal, float scale) {
+  using L = WgSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base =
+      (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023u) & ~1023u;
+  const uint32_t sQ = base, sK = base + L::k_off, sV = base + L::v_off;
+  const uint32_t q_full = base + L::bar_off;
+  const uint32_t k_full = q_full + 8, v_full = k_full + 8 * kStages,
+                 empty = v_full + 8 * kStages;  // + 8 * stage
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // the longest causal tiles first
+  const int q0 = qt * kWgBQ, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int off = q_offset ? q_offset[b] : off_s;
+  const int klen = min(kv_len ? kv_len[b] : klen_s, Tk);
+  int kend = klen;
+  if (causal) kend = min(kend, off + min(q0 + kWgBQ, Tq));  // last query position + 1
+  const int ntiles = kend > 0 ? (kend + kWgBK - 1) / kWgBK : 0;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumers * 4);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kConsumers * 4) {
+    // Producer warpgroup: one thread issues every load.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (warp == kConsumers * 4 && lane == 0) {
+      mbar_expect_tx(q_full, L::q_bytes);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c)
+        tma_load_4d(sQ + c * kWgBQ * 128, &tm_q, q_full, c * 64, h, q0, b);
+      for (int it = 0; it < ntiles; ++it) {
+        const int s = it % kStages;
+        mbar_wait(empty + 8 * s, ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(k_full + 8 * s, L::kv_bytes);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c)
+          tma_load_4d(sK + s * L::kv_bytes + c * kWgBK * 128, &tm_k, k_full + 8 * s, c * 64, hk,
+                      it * kWgBK, b);
+        mbar_expect_tx(v_full + 8 * s, L::kv_bytes);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c)
+          tma_load_4d(sV + s * L::kv_bytes + c * kWgBK * 128, &tm_v, v_full + 8 * s, c * 64, hk,
+                      it * kWgBK, b);
+      }
+    }
+  } else {
+    // Consumer warpgroups: 64 query rows each.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int wg = warp / 4;
+    const int g = lane / 4, t4 = lane % 4;          // accumulator row group, column pair
+    const int row0 = wg * 64 + (warp % 4) * 16 + g;  // this thread's rows: row0, row0 + 8
+    const int qpos0 = off + q0 + row0;
+    const int qmin = off + q0 + wg * 64;  // the warpgroup's first query position
+    const uint32_t sQw = sQ + wg * (64 * 128);
+    const float sl2 = scale * kLog2e;     // scores in the exp2 domain
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2], acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float sc[kWgBK / 2];         // S of the current tile, then its P in fp32
+    uint32_t pa[kWgBK / 16][4];  // P of the previous tile in bf16, the A operand of P V
+    // The mask is needed only where the tile crosses kv_len or the diagonal.
+    auto softmax = [&](int it) {
+      const int k0 = it * kWgBK;
+      online_softmax(sc, m, l, alpha, k0 + kWgBK > klen || (causal && k0 + kWgBK - 1 > qmin),
+                     k0 + 2 * t4, qpos0, Tk, klen, causal, sl2);
+    };
+
+    // Tile j's S = Q K^T is issued together with tile j-1's O += P V, and
+    // tile j's softmax runs while P V is still on the tensor cores. The two
+    // warpgroups take turns to issue (ping-pong on named barriers 1 and 2),
+    // so one's softmax overlaps the other's products: ntiles + 1 turns each,
+    // and warpgroup 1 lets warpgroup 0 go first.
+    const int turn = 1 + wg, other = 2 - wg, last_turn = ntiles;
+    if (wg == 1 && ntiles > 0) bar_arrive(other);
+    auto take_turn = [&] { bar_sync(turn); };
+    auto end_turn = [&](int t) {
+      if (wg == 0 || t < last_turn) bar_arrive(other);
+    };
+    mbar_wait(q_full, 0);
+    if (ntiles > 0) {
+      mbar_wait(k_full, 0);
+      take_turn();
+      wg_fence();
+      wgmma_qk<D>(sc, sQw, sK);
+      wg_commit();
+      end_turn(0);
+      wg_wait<0>();
+      fence_regs(sc);
+      softmax(0);
+      pack_p(pa, sc);
+    }
+    for (int it = 1; it < ntiles; ++it) {
+      const int s = it % kStages, sp = (it - 1) % kStages;
+      mbar_wait(k_full + 8 * s, (it / kStages) & 1);
+      mbar_wait(v_full + 8 * sp, ((it - 1) / kStages) & 1);
+      fence_regs(acc);
+      fence_regs(pa);
+      take_turn();
+      wg_fence();
+      wgmma_qk<D>(sc, sQw, sK + s * L::kv_bytes);
+      wg_commit();
+      wgmma_pv<D>(acc, pa, sV + sp * L::kv_bytes);
+      wg_commit();
+      end_turn(it);
+      wg_wait<1>();  // S is done; P V may still run
+      fence_regs(sc);
+      softmax(it);
+      wg_wait<0>();
+      fence_regs(acc);
+      fence_regs(pa);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * sp);  // this warp is done with tile it-1's stage
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      pack_p(pa, sc);
+    }
+    if (ntiles > 0) {
+      const int sl = (ntiles - 1) % kStages;
+      mbar_wait(v_full + 8 * sl, ((ntiles - 1) / kStages) & 1);
+      fence_regs(acc);
+      fence_regs(pa);
+      take_turn();
+      wg_fence();
+      wgmma_pv<D>(acc, pa, sV + sl * L::kv_bytes);
+      wg_commit();
+      end_turn(ntiles);
+      wg_wait<0>();
+      fence_regs(acc);
+    }
+
+    // Epilogue: O / l in bf16 into this warpgroup's rows of the Q tile (free
+    // once its last S = Q K^T is done), in the 128-byte swizzled layout, then
+    // one TMA store per column block; rows past Tq are not written.
+    const int wrow = (warp % 4) * 16 + g;  // row within the warpgroup's 64
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float lc = fmaxf(quad_sum(l[r]), 1e-30f);
+      const float inv = 1.f / lc;
+      const int row = wrow + 8 * r;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const uint32_t dst = sQw + (j / 8) * (kWgBQ * 128) + row * 128 +
+                             (((j % 8) ^ (row % 8)) << 4) + 4 * t4;
+        const uint32_t v = pack_bf16(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(dst), "r"(v) : "memory");
+      }
+      // m is in the exp2 domain; a row that saw no key keeps NEG_INF as is.
+      const int t = q0 + row0 + 8 * r;
+      if (t4 == 0 && t < Tq)
+        lse[((size_t)b * Hq + h) * Tq + t] = (m[r] == kNegInf ? kNegInf : m[r] * kLn2) + logf(lc);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    bar_sync_wg(3 + wg);
+    if (warp % 4 == 0 && lane == 0 && q0 + wg * 64 < Tq) {
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c)
+        tma_store_4d(&tm_o, sQw + c * (kWgBQ * 128), c * 64, h, q0 + wg * 64, b);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    }
+  }
+}
+
+// ------------------------------------------------------------ host side
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+constexpr int kErrNoEncoder = -2, kErrTensorMap = -3;
+
+// A (B, T, H, D) bf16 tensor as a 4-D map (D, H, T, B) read or written in
+// boxes of 64 columns x `rows` positions of one head, 128-byte swizzled;
+// rows past T read as zeros and are not written.
+int make_map(CUtensorMap* map, const void* ptr, int B, int T, int H, int D, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return kErrNoEncoder;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
+                                 (cuuint64_t)T * H * D * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrTensorMap;
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, void* lse,
+                 const void* q_offset, const void* kv_len, int off_s, int klen_s, int B, int Tq,
+                 int Tk, int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
+  constexpr size_t smem = WgSmem<D>::total;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      fwd_kernel_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  CUtensorMap tq, tk, tv, to;
+  int rc = make_map(&tq, q, B, Tq, Hq, D, kWgBQ);
+  if (rc == 0) rc = make_map(&tk, k, B, Tk, Hkv, D, kWgBK);
+  if (rc == 0) rc = make_map(&tv, v, B, Tk, Hkv, D, kWgBK);
+  if (rc == 0) rc = make_map(&to, o, B, Tq, Hq, D, 64);
+  if (rc != 0) return rc;
+  dim3 grid((Tq + kWgBQ - 1) / kWgBQ, Hq, B);
+  fwd_kernel_wgmma<D><<<grid, kWgThreads, smem, stream>>>(
+      tq, tk, tv, to, static_cast<float*>(lse),
+      static_cast<const int*>(q_offset), static_cast<const int*>(kv_len), off_s, klen_s, Tq, Tk,
+      Hq, Hkv, causal, scale);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 int launch_mma(const void* q, const void* k, const void* v, void* o, void* lse,
-               const void* q_offset, const void* kv_len, int B, int Tq, int Tk, int Hq,
-               int Hkv, int causal, float scale, cudaStream_t stream) {
+               const void* q_offset, const void* kv_len, int off_s, int klen_s, int B, int Tq,
+               int Tk, int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  static_assert(smem <= 48 * 1024, "above 48 KB the launch needs the shared-memory attribute");
   dim3 grid((Tq + kMmaBQ - 1) / kMmaBQ, Hq, B);
   fwd_kernel_mma<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
       static_cast<float*>(lse), static_cast<const int*>(q_offset),
-      static_cast<const int*>(kv_len), Tq, Tk, Hq, Hkv, causal, scale);
+      static_cast<const int*>(kv_len), off_s, klen_s, Tq, Tk, Hq, Hkv, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -407,24 +975,26 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, void* lse,
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           const void* q_offset, const void* kv_len, int B, int Tq, int Tk, int Hq,
-           int Hkv, int causal, float scale, cudaStream_t stream) {
+           const void* q_offset, const void* kv_len, int off_s, int klen_s, int B, int Tq,
+           int Tk, int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
+  static const cudaError_t attr = cudaFuncSetAttribute(
       fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (attr != cudaSuccess) return (int)attr;
   dim3 grid((Tq + kBQ - 1) / kBQ, Hq, B);
   fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), static_cast<float*>(lse), static_cast<const int*>(q_offset),
-      static_cast<const int*>(kv_len), Tq, Tk, Hq, Hkv, causal, scale);
+      static_cast<const int*>(kv_len), off_s, klen_s, Tq, Tk, Hq, Hkv, causal, scale);
   return (int)cudaGetLastError();
 }
 
 using LaunchFn = int (*)(const void*, const void*, const void*, void*, void*, const void*,
-                         const void*, int, int, int, int, int, int, float, cudaStream_t);
+                         const void*, int, int, int, int, int, int, int, int, float,
+                         cudaStream_t);
 
-// float32 -> the scalar kernel, bfloat16 -> the tensor-core kernel.
+// float32 -> the scalar kernel; bfloat16 -> wgmma for D = 64 / 128, mma.sync
+// for D = 16.
 LaunchFn pick(int dtype, int D) {
   if (dtype == 0) {
     switch (D) {
@@ -435,8 +1005,8 @@ LaunchFn pick(int dtype, int D) {
   } else if (dtype == 1) {
     switch (D) {
       case 16: return launch_mma<16>;
-      case 64: return launch_mma<64>;
-      case 128: return launch_mma<128>;
+      case 64: return launch_wgmma<64>;
+      case 128: return launch_wgmma<128>;
     }
   }
   return nullptr;
@@ -445,15 +1015,17 @@ LaunchFn pick(int dtype, int D) {
 }  // namespace
 
 // q (B,Tq,Hq,D), k and v (B,Tk,Hkv,D), o (B,Tq,Hq,D), all contiguous and of
-// one type (dtype 0: float32, 1: bfloat16); lse (B,Hq,Tq) float32;
-// q_offset and kv_len (B,) int32. Returns a cudaError_t, or -1 for an
-// unsupported head dim or type.
+// one type (dtype 0: float32, 1: bfloat16); lse (B,Hq,Tq) float32.
+// q_offset and kv_len are (B,) int32, or null for the scalars off_s and
+// klen_s. Returns a cudaError_t, -1 for an unsupported head dim or type, -2
+// when the driver has no tensor-map encoder and -3 when a map is refused.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    void* lse, const void* q_offset, const void* kv_len,
-                                   int B, int Tq, int Tk, int Hq, int Hkv, int D,
-                                   int causal, float scale, int dtype, void* stream) {
+                                   int off_s, int klen_s, int B, int Tq, int Tk, int Hq,
+                                   int Hkv, int D, int causal, float scale, int dtype,
+                                   void* stream) {
   const LaunchFn f = pick(dtype, D);
   if (f == nullptr) return -1;
-  return f(q, k, v, o, lse, q_offset, kv_len, B, Tq, Tk, Hq, Hkv, causal, scale,
+  return f(q, k, v, o, lse, q_offset, kv_len, off_s, klen_s, B, Tq, Tk, Hq, Hkv, causal, scale,
            static_cast<cudaStream_t>(stream));
 }

@@ -34,7 +34,7 @@ HEAD_DIMS = (16, 64, 128)
 def _lib() -> ctypes.CDLL:
     lib = build.library("flash_attention")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.flash_attention_fwd.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+    lib.flash_attention_fwd.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I,
                                         ctypes.c_float, I, P]
     lib.flash_attention_fwd.restype = I
     return lib
@@ -61,6 +61,23 @@ def per_batch_i32(x, B: int, default: int, device, upper: int | None = None) -> 
                           device=device)
     t = x.to(device=device, dtype=torch.int32).reshape(-1).expand(B)
     return t.clamp(max=upper) if upper is not None else t.contiguous()
+
+
+def raw_stream(t: torch.Tensor) -> int:
+    """The current CUDA stream of t's device as the integer handle the C
+    functions take (cheaper per call than a ``torch.cuda.Stream`` object)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def _offset_arg(x, B: int, default: int, device):
+    """(tensor, scalar) for the kernel: None or an int goes as the scalar
+    with no tensor (no launch to fill one); a tensor as a (B,) int32 on the
+    device."""
+    if x is None:
+        return None, default
+    if isinstance(x, int):
+        return None, x
+    return per_batch_i32(x, B, default, device), 0
 
 
 def check_cuda(name: str, *ts: torch.Tensor) -> None:
@@ -90,14 +107,15 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, q_offset=None,
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    qo = per_batch_i32(q_offset, B, 0, q.device)
-    kl = per_batch_i32(kv_len, B, Tk, q.device)
+    qo, qo_s = _offset_arg(q_offset, B, 0, q.device)
+    kl, kl_s = _offset_arg(kv_len, B, Tk, q.device)
     o = torch.empty_like(q)
     lse = torch.empty((B, Hq, Tq), dtype=torch.float32, device=q.device)
     rc = _lib().flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        qo.data_ptr(), kl.data_ptr(), B, Tq, Tk, Hq, Hkv, D, int(causal), scale,
-        DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        None if qo is None else qo.data_ptr(), None if kl is None else kl.data_ptr(),
+        qo_s, kl_s, B, Tq, Tk, Hq, Hkv, D, int(causal), scale,
+        DTYPES[q.dtype], raw_stream(q))
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed (error {rc})")
     launches["flash_attention"] += 1

@@ -21,18 +21,12 @@ def _per_batch(x, B: int, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.int64, device=device).reshape(-1).expand(B)
 
 
-def attention(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
-              q_offset=None, kv_len=None):
-    """q: (B, Tq, Hq, D); k, v: (B, Tk, Hkv, D) with Hq % Hkv == 0.
-
-    Query t of sequence b sits at position ``q_offset[b] + t`` and, when
-    causal, sees keys at positions <= its own; ``kv_len[b]`` hides keys at
-    or past it. Both default to "no offset" and "all of Tk"."""
+def _masked_scores(q, k, causal, scale, q_offset, kv_len):
+    """Scaled fp32 scores (B, Hkv, group, Tq, Tk), masked with NEG_INF."""
     B, Tq, Hq, D = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    group = Hq // Hkv
-    qf = (q.float() * scale).reshape(B, Tq, Hkv, group, D)
+    qf = (q.float() * scale).reshape(B, Tq, Hkv, Hq // Hkv, D)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float())
     kpos = torch.arange(Tk, device=q.device)
     if causal:
@@ -43,9 +37,29 @@ def attention(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
     if kv_len is not None:
         valid = kpos[None, :] < _per_batch(kv_len, B, q.device)[:, None]   # (B, Tk)
         s = torch.where(valid[:, None, None, None], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    return s
+
+
+def attention(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
+              q_offset=None, kv_len=None):
+    """q: (B, Tq, Hq, D); k, v: (B, Tk, Hkv, D) with Hq % Hkv == 0.
+
+    Query t of sequence b sits at position ``q_offset[b] + t`` and, when
+    causal, sees keys at positions <= its own; ``kv_len[b]`` hides keys at
+    or past it. Both default to "no offset" and "all of Tk"."""
+    B, Tq, Hq, D = q.shape
+    p = torch.softmax(_masked_scores(q, k, causal, scale, q_offset, kv_len), dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return o.reshape(B, Tq, Hq, D).to(q.dtype)
+
+
+def attention_lse(q, k, *, causal: bool = True, scale: Optional[float] = None,
+                  q_offset=None, kv_len=None):
+    """The forward kernel's second output: lse = logsumexp of the masked,
+    scaled scores over the keys, natural log, (B, Hq, Tq) fp32."""
+    B, Tq, Hq, _ = q.shape
+    s = _masked_scores(q, k, causal, scale, q_offset, kv_len)
+    return torch.logsumexp(s, dim=-1).reshape(B, Hq, Tq)
 
 
 def attention_delta(o, do):

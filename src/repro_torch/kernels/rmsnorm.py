@@ -1,80 +1,67 @@
-"""Fused RMSNorm on the card: a Triton kernel (replaces
-``repro/kernels/rmsnorm.py::_rmsnorm_kernel``, pallas_call at rmsnorm.py:34),
-and its plain version ``ref.rmsnorm`` beside it.
+"""Fused RMSNorm on the card: the CUDA kernel of ``csrc/rmsnorm.cu``
+(replaces ``repro/kernels/rmsnorm.py::_rmsnorm_kernel``, pallas_call at
+rmsnorm.py:34), and its plain version ``ref.rmsnorm`` beside it.
 
-y = x * rsqrt(mean(x^2) + eps) * scale, statistics in fp32, y in x's type.
-
-What bounds it: a few operations per element, so the bytes of reading x once
-and writing y once. One program normalises a block of whole rows (d up to a
-few thousand, held in registers, masked to a power of two), so each row makes
-one trip through memory; the TPU kernel padded the rows to a block multiple
-with a copy, while this one masks the ragged last block. Triton expresses the
-row reduction plus the elementwise scale directly; a CUDA kernel would not
-change what bounds it.
+y = x * rsqrt(mean(x^2) + eps) * scale, statistics in fp32, scale in fp32,
+y in x's type. The source note in the ``.cu`` file says what bounds the
+kernel and how its rows are laid over lanes.
 
 ``RMSNormFn`` is the ``torch.autograd.Function`` that training goes through:
 its forward is this kernel, its backward the plain ``ref.rmsnorm_bwd`` (the
 TPU package had no RMSNorm backward kernel either: training differentiated
 its plain path, ``repro/kernels/ops.py``).
-
-``triton`` is imported at the first launch, so the module imports on a
-machine without it; the kernel body below is compiled by ``triton.jit``
-then and never runs as Python.
 """
 from __future__ import annotations
 
 import collections
+import ctypes
 import functools
 
 import torch
 
-from repro_torch.kernels.flash_attention import DTYPES
-from repro_torch.kernels import ref
+from repro_torch.kernels import build, ref
+from repro_torch.kernels.flash_attention import DTYPES, raw_stream
 from repro_torch.kernels.ref import rmsnorm as plain  # noqa: F401  (the plain version)
 
 launches = collections.Counter()  # "rmsnorm": kernel launches
-tl = None  # triton.language, bound at the first launch (read by the kernel body)
-
-
-def _rmsnorm_kernel(x_ptr, scale_ptr, o_ptr, rows, d, eps,
-                    BLOCK_ROWS: "tl.constexpr", BLOCK_D: "tl.constexpr"):
-    r = tl.program_id(0) * BLOCK_ROWS + tl.arange(0, BLOCK_ROWS)[:, None]
-    c = tl.arange(0, BLOCK_D)[None, :]
-    mask = (r < rows) & (c < d)
-    x = tl.load(x_ptr + r * d + c, mask=mask, other=0.0).to(tl.float32)
-    ms = tl.sum(x * x, axis=1) / d
-    s = tl.load(scale_ptr + c, mask=c < d, other=0.0).to(tl.float32)
-    y = x * tl.rsqrt(ms + eps)[:, None] * s
-    tl.store(o_ptr + r * d + c, y.to(o_ptr.dtype.element_ty), mask=mask)
 
 
 @functools.cache
-def _jit():
-    global tl
-    import triton
-    import triton.language
-
-    tl = triton.language
-    return triton, triton.jit(_rmsnorm_kernel)
+def _lib() -> ctypes.CDLL:
+    lib = build.library("rmsnorm")
+    P = ctypes.c_void_p
+    lib.rmsnorm_fwd.argtypes = [P, P, P, ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+                                ctypes.c_int, P]
+    lib.rmsnorm_fwd.restype = ctypes.c_int
+    return lib
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """x: (..., d) float32 or bfloat16, contiguous; scale: (d,). One launch."""
+    """x: (..., d) float32 or bfloat16, contiguous and 16-byte aligned;
+    scale: (d,) float32. One launch on the current stream. The arguments are
+    checked before anything is built; the checks are kept cheap, since the
+    serve path calls this 113 times per decode step."""
+    code = DTYPES.get(x.dtype)
+    if code is None:
+        raise ValueError(f"rmsnorm: float32 or bfloat16 x, got {x.dtype}")
+    xp = x.data_ptr()
+    if xp % 16 or not x.is_contiguous():
+        raise ValueError("rmsnorm: x must be contiguous and 16-byte aligned")
+    d = x.shape[-1] if x.dim() else 0
+    sp = scale.data_ptr()
+    if (d == 0 or scale.shape != (d,) or scale.dtype != torch.float32 or sp % 16
+            or not scale.is_contiguous()):
+        raise ValueError(f"rmsnorm: scale must be a contiguous, 16-byte aligned float32 "
+                         f"({d},), got {tuple(scale.shape)} {scale.dtype}")
     if not (x.is_cuda and scale.is_cuda):
         raise ValueError(f"rmsnorm: the kernel takes CUDA tensors, got {x.device}")
-    if x.dtype not in DTYPES or not x.is_contiguous() or not scale.is_contiguous():
-        raise ValueError(f"rmsnorm: contiguous float32 or bfloat16 x, got {x.dtype}")
-    d = x.shape[-1]
-    if scale.shape != (d,):
-        raise ValueError(f"rmsnorm: scale {tuple(scale.shape)} for rows of {d}")
-    triton, kernel = _jit()
-    rows = x.numel() // d
-    block_d = triton.next_power_of_2(d)
-    block_rows = max(1, min(64, 8192 // block_d))
     o = torch.empty_like(x)
-    grid = (triton.cdiv(rows, block_rows),)
-    kernel[grid](x, scale, o, rows, d, eps, BLOCK_ROWS=block_rows, BLOCK_D=block_d,
-                 num_warps=8 if block_d >= 2048 else 4)
+    rows = x.numel() // d
+    if rows == 0:
+        return o
+    rc = _lib().rmsnorm_fwd(xp, sp, o.data_ptr(), rows, d, eps, code, raw_stream(x))
+    if rc != 0:
+        raise RuntimeError(f"rmsnorm launch failed (error {rc})")
     launches["rmsnorm"] += 1
     return o
 

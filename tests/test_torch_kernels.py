@@ -3,8 +3,9 @@ against the JAX package's oracles: ``repro.kernels.ref`` (what
 ``tests/test_kernels.py`` holds the Pallas kernels to) and
 ``repro.models.layers._sdpa`` for the cached-prefill masks.
 
-On the CPU each wrapper runs its plain PyTorch version; the CUDA and Triton
-kernels are held to the same plain versions on the card by ``chip_smoke.py``.
+On the CPU each wrapper runs its plain PyTorch version; the CUDA kernels
+(``src/repro_torch/csrc/*.cu``) are held to the same plain versions on the
+card by ``chip_smoke.py``.
 Inputs come from numpy with a seed and go to both frameworks as arrays.
 """
 import numpy as np
@@ -253,3 +254,164 @@ def test_backward_wrappers_refuse_cpu_tensors():
         flash_attention.launch_dkv(t, t, t, t, stats, stats)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention.flash_attention_bwd(t, t, t, t, stats, t)
+
+
+# ------------------------------------------------- K5 wrapper and kernel table
+
+@pytest.mark.parametrize("d", [16, 64, 128, 2048, 100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ref_rmsnorm_matches_jax(d, dtype):
+    """The plain version that chip_smoke.py holds the CUDA row kernel to, at
+    the path's widths and one d that is not a multiple of the 16-byte vector,
+    against repro.kernels.ref.rmsnorm (ATOL of tests/test_kernels.py)."""
+    from repro_torch.kernels.ref import rmsnorm as ref_rmsnorm
+
+    x, scale = _arrays(15, (37, d), (d,))
+    jx, tx = _both(x, dtype)
+    out = ref_rmsnorm(tx, torch.from_numpy(scale))
+    assert out.dtype == TDT[dtype]
+    _close(out, jref.rmsnorm(jx, jnp.asarray(scale)), dtype)
+
+
+def test_rmsnorm_module_imports_without_triton_or_nvcc(tmp_path):
+    """kernels/rmsnorm.py binds a CUDA C++ kernel through ctypes: it imports
+    with triton unimportable and no nvcc, builds nothing at import, and its
+    wrapper refuses CPU tensors."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys\n"
+        "sys.modules['triton'] = None\n"
+        "import torch\n"
+        "from repro_torch.kernels import rmsnorm\n"
+        "assert rmsnorm._lib.cache_info().currsize == 0\n"
+        "try:\n"
+        "    rmsnorm.rmsnorm(torch.zeros(4, 16), torch.ones(16))\n"
+        "except ValueError as e:\n"
+        "    assert 'CUDA' in str(e), e\n"
+        "else:\n"
+        "    raise SystemExit('no ValueError')\n"
+        "assert rmsnorm._lib.cache_info().currsize == 0\n"
+        "assert sys.modules['triton'] is None\n"
+        "print('ok')\n")
+    import os
+    from pathlib import Path
+
+    src = Path(__file__).resolve().parents[1] / "src"
+    env = dict(os.environ, PYTHONPATH=str(src), CUDA_HOME=str(tmp_path / "no-cuda"),
+               PATH=os.pathsep.join(p for p in os.environ.get("PATH", "").split(os.pathsep)
+                                    if not (Path(p) / "nvcc").exists()))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
+                       timeout=300)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stdout + r.stderr
+
+
+@pytest.mark.parametrize("case", ["cpu", "dtype", "non_contiguous", "scale_shape"])
+def test_rmsnorm_wrapper_validates_before_any_build(case, monkeypatch):
+    from repro_torch.kernels import build
+    from repro_torch.kernels import rmsnorm
+
+    def no_build(name):
+        raise AssertionError(f"built {name}")
+
+    monkeypatch.setattr(build, "library", no_build)
+    x, scale = torch.zeros(4, 16), torch.ones(16)
+    want = {"cpu": "CUDA", "dtype": "float32 or bfloat16", "non_contiguous": "contiguous",
+            "scale_shape": "scale"}[case]
+    if case == "dtype":
+        x = x.half()
+    elif case == "non_contiguous":
+        x = torch.zeros(16, 4).t()
+    elif case == "scale_shape":
+        scale = torch.ones(8)
+    with pytest.raises(ValueError, match=want):
+        rmsnorm.rmsnorm(x, scale)
+
+
+def _kernels_dir():
+    from pathlib import Path
+
+    return Path(__file__).resolve().parents[1] / "src" / "repro" / "kernels"
+
+
+def _named_sites(cu_path):
+    """The pallas_call sites (file, line) the leading comment of a .cu file
+    says it replaces."""
+    import re
+
+    head = []
+    for line in cu_path.read_text().splitlines():
+        if not line.startswith("//"):
+            break
+        head.append(line.lstrip("/ ").strip())
+    return {(f, int(n)) for f, n in re.findall(r"pallas_call at (\w+\.py):(\d+)", " ".join(head))}
+
+
+def test_build_sources_are_the_csrc_files():
+    from repro_torch.kernels import build
+
+    assert sorted(build.SOURCES) == sorted(p.stem for p in build.CSRC.glob("*.cu"))
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "flash_attention_bwd", "decode_attention",
+                                  "rmsnorm"])
+def test_cuda_source_names_the_pallas_call_it_replaces(name):
+    """Drift guard for the kernel table: each .cu header names the
+    pallas_call line(s) of the TPU kernel it replaces, and those lines are
+    pallas_call sites today."""
+    from repro_torch.kernels import build
+
+    sites = _named_sites(build.CSRC / f"{name}.cu")
+    assert sites, f"{name}.cu names no pallas_call site"
+    for fname, line in sites:
+        text = (_kernels_dir() / fname).read_text().splitlines()
+        assert "pl.pallas_call(" in text[line - 1], (name, fname, line, text[line - 1])
+
+
+def test_every_pallas_call_has_a_cuda_source():
+    from repro_torch.kernels import build
+
+    named = set().union(*(_named_sites(build.CSRC / f"{n}.cu") for n in build.SOURCES))
+    sites = {(p.name, i + 1) for p in _kernels_dir().glob("*.py")
+             for i, line in enumerate(p.read_text().splitlines()) if "pl.pallas_call(" in line}
+    assert sites and named == sites
+
+
+@pytest.mark.parametrize(
+    "B,Tq,Tk,Hq,Hkv,D,q_offset,kv_len,causal",
+    [
+        (2, 61, 80, 4, 2, 16, (0, 0), (61, 61), True),
+        (2, 7, 40, 4, 2, 16, (5, 20), (12, 27), True),
+        (1, 33, 33, 4, 1, 64, None, None, False),
+    ],
+)
+def test_attention_lse_reproduces_sdpa(B, Tq, Tk, Hq, Hkv, D, q_offset, kv_len, causal):
+    """ref.attention_lse, the plain version of K1's second output: the
+    weights exp(s - lse) rebuild repro.models.layers._sdpa's output."""
+    from repro_torch.kernels.ref import _masked_scores, attention_lse
+
+    q, k, v = _arrays(16, (B, Tq, Hq, D), (B, Tk, Hkv, D), (B, Tk, Hkv, D))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    qo = None if q_offset is None else torch.tensor(q_offset)
+    kl = None if kv_len is None else torch.tensor(kv_len)
+    lse = attention_lse(tq, tk, causal=causal, q_offset=qo, kv_len=kl)
+    assert lse.shape == (B, Hq, Tq) and lse.dtype == torch.float32
+    s = _masked_scores(tq, tk, causal, None, qo, kl)                 # (B, Hkv, g, Tq, Tk)
+    p = torch.exp(s - lse.reshape(B, Hkv, Hq // Hkv, Tq)[..., None])
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, tv).reshape(B, Tq, Hq, D)
+    want = jlayers._sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                         q_offset=0 if qo is None else jnp.asarray(np.asarray(q_offset)),
+                         kv_len=None if kl is None else jnp.asarray(np.asarray(kv_len)))
+    _close(o, want, "float32", rtol=1e-3)
+
+
+def test_int_offsets_reach_the_kernel_as_scalars():
+    """An int (or None) q_offset / kv_len goes to K1 as a scalar argument
+    with no (B,) tensor to fill; a tensor goes as (B,) int32."""
+    from repro_torch.kernels.flash_attention import _offset_arg
+
+    assert _offset_arg(None, 3, 17, "cpu") == (None, 17)
+    assert _offset_arg(5, 3, 17, "cpu") == (None, 5)
+    t, s = _offset_arg(torch.tensor([1, 2, 3]), 3, 17, "cpu")
+    assert s == 0 and t.dtype == torch.int32 and t.tolist() == [1, 2, 3]
