@@ -8,8 +8,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
   2. build the CUDA kernels from the repo's sources (one nvcc per source);
   3. hold every kernel against its plain PyTorch version on the card, at the
      serve and training paths' full-width shapes and at reduced ones (GQA
-     group 2, MQA, non-causal, Tq and Tk that are not multiples of K1's
-     128-row tiles, a kv_len that ends inside a key tile or the first split,
+     group 2 and 4, MQA, non-causal, Tq and Tk that are not multiples of
+     K1's or K3's tiles, a kv_len that ends inside a key tile, one row into a
+     split, at 1 or at the cache's end, an int kv_len next to a (B,) tensor,
      q_offset > 0 over a cache longer than kv_len, head dims 16 / 64 / 128,
      RMSNorm rows of 16 / 64 / 100 / 128 / 2048 / 5000), in float32 (atol
      1e-4: only the order of sums differs) and bfloat16 (atol 2e-2, rtol
@@ -20,7 +21,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
      bound, its plain version and one PyTorch library call as a yardstick
      (the port never calls that library function): CUDA events around the
      call (ms) and the kernels' own device time from torch.profiler
-     (device_ms, library_device_ms);
+     (device_ms, library_device_ms); K4's split kernel is also timed alone;
   4. serve-path parity: qwen3-1.7b at full width with 2 layers in float32
      serves 2 ragged requests (prefill + 4 decode steps) on the card through
      the kernels and on the CPU through the plain versions; logits agree
@@ -116,13 +117,14 @@ class Timer:
         torch.cuda.synchronize()
         return statistics.median(a.elapsed_time(b) for a, b in times)
 
-    def device_ms(self, fn, reps: int = 10) -> float:
+    def device_ms(self, fn, reps: int = 10, only: str | None = None) -> float:
         """Device time per call of the kernels ``fn`` launches, from
         torch.profiler, each call after an L2 flush. The flush's kernel (the
         one fill of a uint8 tensor) is left out by name; each other kernel
         counts its mean time times its launches per call, so a record that
         strays in from outside the window changes nothing. Unlike ``ms`` it
-        holds no host time between launches."""
+        holds no host time between launches. With ``only``, kernels whose
+        name lacks it are left out too."""
         from torch.profiler import ProfilerActivity, profile
 
         for _ in range(3):  # a session that recorded none of fn's kernels is run again
@@ -133,7 +135,8 @@ class Timer:
                 torch.cuda.synchronize()
             got = [(e.self_device_time_total, e.count) for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA
-                   and "FillFunctor<unsigned char>" not in e.key and e.count >= reps // 2]
+                   and "FillFunctor<unsigned char>" not in e.key and e.count >= reps // 2
+                   and (only is None or only in e.key)]
             if got:
                 return sum(us / n * round(n / reps) for us, n in got) / 1e3
         fail("the profiler saw no kernel of a timed call in three sessions")
@@ -181,8 +184,11 @@ def check_kernels(dev, timer):
         (2, 200, 333, 2, 2, 128, None, None, False), # MHA, non-causal, Tq != Tk
         (2, 61, 80, 4, 2, 16, 0, 61, True),          # reduced prefill, D 16 (mma.sync kernel)
     ]
-    decode_cases = [  # B, S, Hq, Hkv, D, kv_len
+    decode_cases = [  # B, S, Hq, Hkv, D, kv_len (a list goes as a (B,) tensor)
         (B_SERVE, MAX_LEN, HQ, HKV, HD, [DECODE_KV] * 7 + [5]),
+        (B_SERVE, MAX_LEN, HQ, HKV, HD, 1),                # one key
+        (B_SERVE, MAX_LEN, HQ, HKV, HD, dec.BLK_S + 1),    # one row into the second split
+        (B_SERVE, MAX_LEN, HQ, HKV, HD, MAX_LEN),          # the whole cache
         (3, 80, 4, 2, 16, [1, 37, 80]),
         (2, 333, 8, 2, 64, [5, 333]),
     ]
@@ -219,6 +225,15 @@ def check_kernels(dev, timer):
                   dec.combine_splits(acc, m, l, kl32, out_dtype=dtype),
                   ref.combine_splits(acc, m, l, kl32, dec.BLK_S, dtype), dtype,
                   errs["decode_combine"])
+        # The decode step's int kv_len (a scalar argument) next to the same
+        # lengths as a (B,) tensor: both match the plain version and each other.
+        q = randn(gen, (B_SERVE, HQ, HD), dtype)
+        k, v = (randn(gen, (B_SERVE, MAX_LEN, HKV, HD), dtype) for _ in range(2))
+        o_int = dec.decode_attention(q, k, v, DECODE_KV)
+        o_vec = dec.decode_attention(q, k, v, torch.full((B_SERVE,), DECODE_KV, device=dev))
+        check("decode_attention int kv_len", o_int, ref.decode_attention(q, k, v, DECODE_KV),
+              dtype, errs["decode_attention"])
+        check("decode_attention (B,) kv_len", o_vec, o_int, dtype, errs["decode_attention"])
         for rows, d in rms_cases:
             x, s = randn(gen, (rows, d), dtype), randn(gen, (d,), torch.float32)
             check(f"rmsnorm rows{rows} d{d}", rms.rmsnorm(x, s), ref.rmsnorm(x, s), dtype,
@@ -255,8 +270,10 @@ def check_kernels(dev, timer):
             qd[:, :, None], k[:, :DECODE_KV].transpose(1, 2), v[:, :DECODE_KV].transpose(1, 2),
             enable_gqa=True),
         bound=bound_ms(nbytes, 4 * HD * HQ * B_SERVE * DECODE_KV, bf)))
+    split_ms = timer.device_ms(lambda: dec.decode_attention_splits(qd, k, v, DECODE_KV),
+                               only="splits_kernel")
     acc, m, l, kl32 = dec.decode_attention_splits(qd, k, v, DECODE_KV)
-    nvalid = -(-DECODE_KV // dec.BLK_S)
+    nvalid = dec.valid_splits(DECODE_KV, MAX_LEN)
     nbytes = B_SERVE * HQ * nvalid * (HD + 2) * 4 + B_SERVE * HQ * HD * 2
     out.append(dict(
         name="decode_combine", route="cuda", source="src/repro_torch/csrc/decode_attention.cu",
@@ -273,7 +290,12 @@ def check_kernels(dev, timer):
         fn=lambda: rms.rmsnorm(x, s), plain=lambda: ref.rmsnorm(x, s),
         library=lambda: F.rms_norm(x, (D_MODEL,), weight=s_bf, eps=1e-6),
         bound=bound_ms(2 * x.numel() * 2 + D_MODEL * 4, 4 * x.numel(), torch.float32)))
-    return [timed(e, timer, errs) for e in out]
+    out = [timed(e, timer, errs) for e in out]
+    k4 = next(e for e in out if e["name"] == "decode_attention")
+    log(f"  decode_attention's split kernel alone: device {split_ms:.4f} ms against the "
+        f"row's bound {k4['bound_ms']:.4f} ms ({k4['bound_ms'] / split_ms:.0%} of it); the "
+        f"row above times split + combine")
+    return out
 
 
 def timed(e, timer, errs):
@@ -309,6 +331,9 @@ def check_backward(dev, timer):
     errs = {"flash_attention_dq": [], "flash_attention_dkv": []}
     cases = [  # B, T, Hq, Hkv, D, causal
         (B_TRAIN, SEQ_TRAIN, HQ, HKV, HD, True),  # full-width training shape
+        (2, 333, 4, 2, 128, True),                # ragged across K3's 128 keys and 64 queries
+        (2, 200, 8, 2, 64, True),                 # GQA group 4, D 64
+        (1, SEQ_TRAIN + 40, HQ, HKV, HD, True),   # full heads, a ragged last key tile
         (2, 77, 4, 2, 16, True),                  # GQA 2, ragged T
         (1, 100, 4, 1, 64, True),                 # MQA, ragged T
         (2, 64, 4, 2, 64, False),                 # non-causal

@@ -9,7 +9,8 @@
 //
 // What differs from the TPU kernel:
 // - One block per (split, kv head, batch) computes all `group` query heads
-//   that share its kv head, so each cache row is read once. The TPU grid
+//   that share its kv head (up to 8; a larger group is cut into blocks of
+//   8), so each cache row is read once. The TPU grid
 //   (decode_attention.py:64) had a query-head axis that its body ignored:
 //   each program recomputed every head.
 // - GQA is indexed, not repeated.
@@ -20,20 +21,40 @@
 //
 // What bounds it: one token does 4 D operations per cached key and head, far
 // below the card's ops-per-byte line, so it is bound by the bytes of K and V
-// up to kv_len. The design reads each of those bytes once (coalesced, one
-// warp per key row) and keeps q, the scores and the probabilities in shared
-// memory.
+// up to kv_len, and it reaches the HBM rate only with enough bytes in flight
+// (by Little's law ~2 MB across the card at ~600 ns). So the split kernel is
+// a byte stream:
+// - each warp streams its own chunks of the split through a private ring
+//   of kStages shared-memory stages with 16-byte cp.async, so each lane has
+//   up to kStages x 8 x 16 bytes of K and V requested before it does any
+//   math, and only __syncwarp orders the ring. Two stages (16 KB a block)
+//   beat four and eight on the card: more blocks fit on an SM, and several
+//   blocks' rings together keep enough bytes in flight;
+// - a chunk is 4 rows per lane group: 16-byte vectors, so 16 lanes cover a
+//   128-wide bf16 row and one warp instruction reads two rows;
+// - the scores of all the group's query heads come from one read of each K
+//   row; an online softmax per head (running m, l in the exp2 domain, q
+//   pre-scaled by scale log2(e)) lets P V follow each chunk's scores with no
+//   block-wide barrier; the warps' partial states merge once at the end;
+// - splits are long (kernels/decode_attention.py's BLK_S), so few partials
+//   go to the combine.
+// One int kv_len for the whole batch comes as a scalar argument (null
+// pointer), so the caller fills no (B,) tensor for it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
+constexpr int kStages = 2;        // chunks in flight per warp (tools/k4_variants.py)
+constexpr int kChunkBytes = 2048;  // one chunk of K (and one of V): 4 steps x 32 lanes x 16 bytes
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -43,93 +64,239 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(x);
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
+// The 16-byte vector of a row as fp32.
+template <typename T> struct Vec;
+template <> struct Vec<float> {
+  static constexpr int N = 4;
+  __device__ __forceinline__ static void load(float (&o)[4], uint32_t addr) {
+    asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=f"(o[0]), "=f"(o[1]), "=f"(o[2]), "=f"(o[3])
+                 : "r"(addr)
+                 : "memory");
+  }
+};
+template <> struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void load(float (&o)[8], uint32_t addr) {
+    uint32_t w[4];
+    asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3])
+                 : "r"(addr)
+                 : "memory");
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+    for (int i = 0; i < 4; ++i) {
+      o[2 * i] = __uint_as_float(w[i] << 16);          // low bf16 of the pair
+      o[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// grid (nsplit, Hkv, B); dynamic shared memory: (G * D + G * blk_s) floats.
-template <typename T, int D>
+// 16 bytes from global to shared memory, asynchronously; zero-filled (and
+// nothing read) when !valid.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(reinterpret_cast<uint64_t>(src)),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// grid (Hkv x head blocks, nsplit, B), kThreads threads: the blocks of one
+// split's KV heads are launched together, so they read neighbouring bytes
+// of the same cache rows at about the same time. A block takes GB
+// query heads of one KV head's group (heads past the group are computed
+// with q = 0 and not written), the rows [s0, s0 + n) of its split, and
+// writes one partial (acc, m, l) per head: m the split's max score, l and
+// acc its sums of e^(s - m) and e^(s - m) v.
+template <typename T, int D, int GB>
 __global__ void __launch_bounds__(kThreads)
 splits_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              const int* __restrict__ kv_len, float* __restrict__ acc,
-              float* __restrict__ m_out, float* __restrict__ l_out, int S, int Hq,
-              int Hkv, int nsplit, int blk_s, float scale) {
-  constexpr int PER = (D + 31) / 32;  // head-dim elements per lane
-  const int si = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int G = Hq / Hkv;
-  const int klen = min(kv_len[b], S);
+              const int* __restrict__ kv_len, int klen_s, float* __restrict__ acc,
+              float* __restrict__ m_out, float* __restrict__ l_out, int S, int Hq, int Hkv,
+              int nsplit, int blk_s, float scale) {
+  constexpr int VEC = Vec<T>::N;                    // elements per 16-byte vector
+  constexpr int LPR = D / VEC;                      // lanes per row
+  constexpr int RPI = 32 / LPR;                     // rows per warp instruction
+  constexpr int CR = 4 * RPI;                       // rows per chunk
+  static_assert(LPR * 16 * CR == 4 * 32 * 16, "a chunk is 4 vectors per lane");
+  const int si = blockIdx.y, b = blockIdx.z;
+  const int G = Hq / Hkv, nhb = (G + GB - 1) / GB;
+  const int hk = blockIdx.x / nhb, g0 = (blockIdx.x % nhb) * GB;
+  const int klen = min(kv_len ? kv_len[b] : klen_s, S);
   const int s0 = si * blk_s;
-  if (s0 >= klen) return;  // no valid key in this split
-  const int n = min(blk_s, klen - s0);  // valid keys of this split
+  if (s0 >= klen) return;                 // no valid key in this split
+  const int n = min(blk_s, klen - s0);    // valid rows of this split
 
-  extern __shared__ float smem[];
-  float* sq = smem;           // G x D, pre-scaled
-  float* ss = smem + G * D;   // G x blk_s scores, then probabilities
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int sub = lane / LPR, slice = lane % LPR;  // row within an instruction, vector of the row
+  const uint32_t ring = static_cast<uint32_t>(__cvta_generic_to_shared(smem)) +
+                        warp * kStages * 2 * kChunkBytes;
 
-  for (int i = tid; i < G * D; i += kThreads)
-    sq[i] = to_f(q[((size_t)b * Hq + hk * G) * D + i]) * scale;
-  __syncthreads();
-
-  // Scores: one warp per key row, lanes across the head dim.
-  for (int j = warp; j < blk_s; j += kWarps) {
-    const bool valid = j < n;
-    float kr[PER];
-    const T* krow = k + ((size_t)(b * S + s0 + j) * Hkv + hk) * D;
+  // This warp's chunks: c = warp, warp + kWarps, ... of the split's rows.
+  // Their first kStages are requested before anything else is read.
+  const int nchunks = (n + CR - 1) / CR;
+  const int mine = nchunks > warp ? (nchunks - warp + kWarps - 1) / kWarps : 0;
+  const size_t row_stride = (size_t)Hkv * D;
+  const T* kbase = k + ((size_t)(b * S + s0) * Hkv + hk) * D + slice * VEC;
+  const T* vbase = v + ((size_t)(b * S + s0) * Hkv + hk) * D + slice * VEC;
+  auto issue = [&](int i) {
+    const int c = warp + i * kWarps;
+    const uint32_t st = ring + (i % kStages) * 2 * kChunkBytes;
 #pragma unroll
-    for (int e = 0; e < PER; ++e) {
-      const int d = lane + 32 * e;
-      kr[e] = (valid && d < D) ? to_f(krow[d]) : 0.f;
+    for (int j = 0; j < 4; ++j) {
+      const int r = c * CR + j * RPI + sub;  // row within the split
+      const bool ok = r < n;
+      const size_t off = ok ? (size_t)r * row_stride : 0;
+      cp_async16(st + (j * 32 + lane) * 16, kbase + off, ok);
+      cp_async16(st + kChunkBytes + (j * 32 + lane) * 16, vbase + off, ok);
     }
-    for (int g = 0; g < G; ++g) {
-      float part = 0.f;
+  };
 #pragma unroll
-      for (int e = 0; e < PER; ++e) {
-        const int d = lane + 32 * e;
-        if (d < D) part = fmaf(sq[g * D + d], kr[e], part);
+  for (int i = 0; i < kStages; ++i) {
+    if (i < mine) issue(i);
+    cp_async_commit();  // empty groups keep the count uniform
+  }
+
+  // q of each head, pre-scaled into the exp2 domain, this lane's vector.
+  float qv[GB][VEC];
+#pragma unroll
+  for (int g = 0; g < GB; ++g)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+      qv[g][e] = g0 + g < G
+                     ? to_f(q[((size_t)b * Hq + hk * G + g0 + g) * D + slice * VEC + e]) *
+                           (scale * kLog2e)
+                     : 0.f;
+
+  float m[GB], l[GB], a[GB][VEC];
+#pragma unroll
+  for (int g = 0; g < GB; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) a[g][e] = 0.f;
+  }
+  for (int i = 0; i < mine; ++i) {
+    cp_async_wait<kStages - 1>();  // chunk i has landed (this lane's copies)
+    __syncwarp();                  // ... and every lane's
+    const int c = warp + i * kWarps;
+    const uint32_t st = ring + (i % kStages) * 2 * kChunkBytes;
+    float sc[4][GB];
+    bool ok[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      ok[j] = c * CR + j * RPI + sub < n;
+      float kr[VEC];
+      Vec<T>::load(kr, st + (j * 32 + lane) * 16);
+#pragma unroll
+      for (int g = 0; g < GB; ++g) {
+        float part = 0.f;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) part = fmaf(qv[g][e], kr[e], part);
+#pragma unroll
+        for (int o = LPR / 2; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
+        sc[j][g] = ok[j] ? part : kNegInf;
       }
-      part = warp_sum(part);
-      if (lane == 0) ss[g * blk_s + j] = valid ? part : kNegInf;
+    }
+    float p[4][GB];
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      const float m_new =
+          fmaxf(m[g], fmaxf(fmaxf(sc[0][g], sc[1][g]), fmaxf(sc[2][g], sc[3][g])));
+      // All-masked rows: 2^(NEG_INF - NEG_INF) would be 1; p is forced to 0.
+      const float safe_m = fmaxf(m_new, kNegInf / 2);
+      const float alpha = ex2(m[g] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        p[j][g] = ok[j] ? ex2(sc[j][g] - safe_m) : 0.f;
+        rs += p[j][g];
+      }
+      l[g] = fmaf(l[g], alpha, rs);
+      m[g] = m_new;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) a[g][e] *= alpha;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float vr[VEC];
+      Vec<T>::load(vr, st + kChunkBytes + (j * 32 + lane) * 16);
+#pragma unroll
+      for (int g = 0; g < GB; ++g)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) a[g][e] = fmaf(p[j][g], vr[e], a[g][e]);
+    }
+    __syncwarp();  // every lane is done with the stage before it is refilled
+    if (i + kStages < mine) issue(i + kStages);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+  // Merge the lane groups of the warp (same vector, other rows) ...
+#pragma unroll
+  for (int o = LPR; o < 32; o <<= 1) {
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[g], o);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[g], o);
+      const float mn = fmaxf(m[g], mo);
+      const float wa = ex2(m[g] - mn), wb = ex2(mo - mn);
+      l[g] = l[g] * wa + lo * wb;
+      m[g] = mn;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        a[g][e] = a[g][e] * wa + __shfl_xor_sync(0xffffffffu, a[g][e], o) * wb;
+    }
+  }
+  // ... then the warps, through shared memory after the rings.
+  float* part = reinterpret_cast<float*>(smem + kWarps * kStages * 2 * kChunkBytes);
+  float* pm = part;                       // kWarps x GB
+  float* pl = pm + kWarps * GB;           // kWarps x GB
+  float* pa = pl + kWarps * GB;           // kWarps x GB x D
+  if (lane < LPR) {
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      if (lane == 0) {
+        pm[warp * GB + g] = m[g];
+        pl[warp * GB + g] = l[g];
+      }
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) pa[(warp * GB + g) * D + slice * VEC + e] = a[g][e];
     }
   }
   __syncthreads();
-
-  // Softmax statistics of the split: one warp per query head.
-  for (int g = warp; g < G; g += kWarps) {
-    float mx = kNegInf;
-    for (int j = lane; j < blk_s; j += 32) mx = fmaxf(mx, ss[g * blk_s + j]);
-    mx = warp_max(mx);
-    // All-masked splits: exp(NEG_INF - NEG_INF) would be 1; p is forced to 0.
-    const float safe_m = fmaxf(mx, kNegInf / 2);
-    float sum = 0.f;
-    for (int j = lane; j < blk_s; j += 32) {
-      const float p = j < n ? expf(ss[g * blk_s + j] - safe_m) : 0.f;
-      ss[g * blk_s + j] = p;
-      sum += p;
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      const size_t o = ((size_t)b * Hq + hk * G + g) * nsplit + si;
-      m_out[o] = mx;
-      l_out[o] = sum;
-    }
-  }
-  __syncthreads();
-
-  // acc = P V over the valid keys; consecutive threads on consecutive d.
-  for (int i = tid; i < G * D; i += kThreads) {
+  for (int i = threadIdx.x; i < GB * D; i += kThreads) {
     const int g = i / D, d = i % D;
-    const T* vcol = v + ((size_t)(b * S + s0) * Hkv + hk) * D + d;
-    float a = 0.f;
-    for (int j = 0; j < n; ++j) a = fmaf(ss[g * blk_s + j], to_f(vcol[(size_t)j * Hkv * D]), a);
-    acc[(((size_t)b * Hq + hk * G + g) * nsplit + si) * D + d] = a;
+    if (g0 + g >= G) break;
+    float mx = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, pm[w * GB + g]);
+    float lsum = 0.f, asum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float wt = ex2(pm[w * GB + g] - mx);
+      lsum = fmaf(pl[w * GB + g], wt, lsum);
+      asum = fmaf(pa[(w * GB + g) * D + d], wt, asum);
+    }
+    const size_t o = ((size_t)b * Hq + hk * G + g0 + g) * nsplit + si;
+    acc[o * D + d] = asum;
+    if (d == 0) {
+      m_out[o] = mx * kLn2;  // back to the natural log of the TPU kernel's m
+      l_out[o] = lsum;
+    }
   }
 }
 
@@ -137,10 +304,10 @@ splits_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 template <typename T>
 __global__ void combine_kernel(const float* __restrict__ acc, const float* __restrict__ m,
                                const float* __restrict__ l, const int* __restrict__ kv_len,
-                               T* __restrict__ o, int S, int Hq, int D, int nsplit,
+                               int klen_s, T* __restrict__ o, int S, int Hq, int D, int nsplit,
                                int blk_s) {
   const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-  const int klen = min(kv_len[b], S);
+  const int klen = min(kv_len ? kv_len[b] : klen_s, S);
   const int nvalid = min(nsplit, (klen + blk_s - 1) / blk_s);
   const size_t base = ((size_t)b * Hq + h) * nsplit;
   float mg = kNegInf;
@@ -154,59 +321,77 @@ __global__ void combine_kernel(const float* __restrict__ acc, const float* __res
   if (d < D) o[((size_t)b * Hq + h) * D + d] = from_f<T>(a / fmaxf(lg, 1e-30f));
 }
 
-template <typename T, int D>
-int launch_splits(const void* q, const void* k, const void* v, const void* kv_len,
+template <int D, int GB>
+constexpr size_t splits_smem_bytes() {
+  return (size_t)kWarps * kStages * 2 * kChunkBytes + sizeof(float) * kWarps * GB * (D + 2);
+}
+
+template <typename T, int D, int GB>
+int launch_splits(const void* q, const void* k, const void* v, const void* kv_len, int klen_s,
                   void* acc, void* m, void* l, int B, int S, int Hq, int Hkv, int nsplit,
                   int blk_s, float scale, cudaStream_t stream) {
+  constexpr size_t smem = splits_smem_bytes<D, GB>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      splits_kernel<T, D, GB>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
   const int G = Hq / Hkv;
-  const size_t smem = sizeof(float) * ((size_t)G * D + (size_t)G * blk_s);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        splits_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  dim3 grid(nsplit, Hkv, B);
-  splits_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  dim3 grid(Hkv * ((G + GB - 1) / GB), nsplit, B);
+  splits_kernel<T, D, GB><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(kv_len), static_cast<float*>(acc), static_cast<float*>(m),
+      static_cast<const int*>(kv_len), klen_s, static_cast<float*>(acc), static_cast<float*>(m),
       static_cast<float*>(l), S, Hq, Hkv, nsplit, blk_s, scale);
   return (int)cudaGetLastError();
 }
 
+using SplitsFn = int (*)(const void*, const void*, const void*, const void*, int, void*, void*,
+                         void*, int, int, int, int, int, int, float, cudaStream_t);
+
+// Heads per block: the group rounded up to 1, 2, 4 or 8; larger groups are
+// cut into blocks of 8 heads (each reads the cache rows again).
+template <typename T, int D>
+SplitsFn pick_heads(int G) {
+  if (G <= 1) return launch_splits<T, D, 1>;
+  if (G <= 2) return launch_splits<T, D, 2>;
+  if (G <= 4) return launch_splits<T, D, 4>;
+  return launch_splits<T, D, 8>;
+}
+
 template <typename T>
-int dispatch_splits(int D, const void* q, const void* k, const void* v, const void* kv_len,
-                    void* acc, void* m, void* l, int B, int S, int Hq, int Hkv, int nsplit,
-                    int blk_s, float scale, cudaStream_t stream) {
+SplitsFn pick_splits(int D, int G) {
   switch (D) {
-    case 16: return launch_splits<T, 16>(q, k, v, kv_len, acc, m, l, B, S, Hq, Hkv, nsplit, blk_s, scale, stream);
-    case 64: return launch_splits<T, 64>(q, k, v, kv_len, acc, m, l, B, S, Hq, Hkv, nsplit, blk_s, scale, stream);
-    case 128: return launch_splits<T, 128>(q, k, v, kv_len, acc, m, l, B, S, Hq, Hkv, nsplit, blk_s, scale, stream);
-    default: return -1;
+    case 16: return pick_heads<T, 16>(G);
+    case 64: return pick_heads<T, 64>(G);
+    case 128: return pick_heads<T, 128>(G);
+    default: return nullptr;
   }
 }
 
 }  // namespace
 
 // q (B,Hq,D); k and v (B,S,Hkv,D), contiguous, one type (dtype 0: float32,
-// 1: bfloat16); kv_len (B,) int32; acc (B,Hq,nsplit,D), m and l (B,Hq,nsplit)
-// float32. Splits at or past kv_len are left unwritten. Returns a
-// cudaError_t, or -1 for an unsupported head dim or type.
+// 1: bfloat16); kv_len (B,) int32, or null for the scalar klen_s; acc
+// (B,Hq,nsplit,D), m and l (B,Hq,nsplit) float32. Splits at or past kv_len
+// are left unwritten. Returns a cudaError_t, or -1 for an unsupported head
+// dim or type.
 extern "C" int decode_attention_splits(const void* q, const void* k, const void* v,
-                                       const void* kv_len, void* acc, void* m, void* l,
-                                       int B, int S, int Hq, int Hkv, int D, int nsplit,
-                                       int blk_s, float scale, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_splits<float>(D, q, k, v, kv_len, acc, m, l, B, S, Hq, Hkv, nsplit, blk_s, scale, s);
-  if (dtype == 1)
-    return dispatch_splits<__nv_bfloat16>(D, q, k, v, kv_len, acc, m, l, B, S, Hq, Hkv, nsplit, blk_s, scale, s);
-  return -1;
+                                       const void* kv_len, int klen_s, void* acc, void* m,
+                                       void* l, int B, int S, int Hq, int Hkv, int D,
+                                       int nsplit, int blk_s, float scale, int dtype,
+                                       void* stream) {
+  const int G = Hq / Hkv;
+  const SplitsFn f = dtype == 0   ? pick_splits<float>(D, G)
+                     : dtype == 1 ? pick_splits<__nv_bfloat16>(D, G)
+                                  : nullptr;
+  if (f == nullptr) return -1;
+  return f(q, k, v, kv_len, klen_s, acc, m, l, B, S, Hq, Hkv, nsplit, blk_s, scale,
+           static_cast<cudaStream_t>(stream));
 }
 
-// Merges the valid splits into o (B,Hq,D) of the given type.
+// Merges the valid splits into o (B,Hq,D) of the given type; kv_len as for
+// decode_attention_splits.
 extern "C" int decode_attention_combine(const void* acc, const void* m, const void* l,
-                                        const void* kv_len, void* o, int B, int S, int Hq,
-                                        int D, int nsplit, int blk_s, int dtype,
+                                        const void* kv_len, int klen_s, void* o, int B, int S,
+                                        int Hq, int D, int nsplit, int blk_s, int dtype,
                                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   dim3 grid(Hq, B);
@@ -216,9 +401,11 @@ extern "C" int decode_attention_combine(const void* acc, const void* m, const vo
   const float* ll = static_cast<const float*>(l);
   const int* kl = static_cast<const int*>(kv_len);
   if (dtype == 0)
-    combine_kernel<float><<<grid, threads, 0, s>>>(a, mm, ll, kl, static_cast<float*>(o), S, Hq, D, nsplit, blk_s);
+    combine_kernel<float><<<grid, threads, 0, s>>>(a, mm, ll, kl, klen_s, static_cast<float*>(o),
+                                                   S, Hq, D, nsplit, blk_s);
   else if (dtype == 1)
-    combine_kernel<__nv_bfloat16><<<grid, threads, 0, s>>>(a, mm, ll, kl, static_cast<__nv_bfloat16*>(o), S, Hq, D, nsplit, blk_s);
+    combine_kernel<__nv_bfloat16><<<grid, threads, 0, s>>>(
+        a, mm, ll, kl, klen_s, static_cast<__nv_bfloat16*>(o), S, Hq, D, nsplit, blk_s);
   else
     return -1;
   return (int)cudaGetLastError();

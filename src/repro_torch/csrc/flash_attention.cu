@@ -63,15 +63,15 @@
 //   with the tiles converted to fp32 in shared memory, so the result differs
 //   from an fp32 reference only in the order of sums.
 //
-// The tensor-map encoder comes from the driver through
-// cudaGetDriverEntryPoint, so the library links against no libcuda.
+// The mbarrier, TMA and wgmma helpers and the tensor-map encoder (from the
+// driver through cudaGetDriverEntryPoint, so no libcuda is linked) are
+// shared with flash_attention_bwd.cu in hopper.cuh.
 
-#include <cuda.h>  // CUtensorMap and its enums; no driver symbol is linked
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "hopper.cuh"  // mbarriers, TMA, wgmma, the tensor-map encoder
 
 namespace {
 
@@ -239,11 +239,6 @@ __device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // c += a (16x16, row) * b (16x8, col); bf16 inputs, fp32 accumulators.
 __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], uint32_t b0,
                                           uint32_t b1) {
@@ -261,15 +256,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const __nv_bflo
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // Copies rows [r0, r0 + rows) of one head of a (B, T, H, D) tensor into a
@@ -441,177 +427,14 @@ struct WgSmem {
   static constexpr size_t total = bar_off + 8 * (1 + 3 * kStages) + 1024;
 };
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(
-                   bar)
-               : "memory");
-}
-// Returns once the phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One box of a 4-D tensor map (coordinates innermost first) into shared
-// memory; completion is counted in bytes on the barrier.
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// One box of shared memory to a 4-D tensor map; rows outside the tensor are
-// not written. Completion is tracked per thread with bulk groups.
-__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1,
-                                             int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte swizzled tile: start address,
-// leading and stride byte offsets (16-byte units), layout type 1 (128B).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Waits until at most N committed groups of this warpgroup are pending.
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keeps the compiler from touching registers an asynchronous wgmma still
-// reads or writes: reads and writes of r cannot move across this point.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
 // Named barriers 1 and 2 order the two consumer warpgroups' products, 3 and
 // 4 gather each warpgroup before its output store (barrier 0 is
 // __syncthreads).
 __device__ __forceinline__ void bar_sync(int id) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kConsumers * 128) : "memory");
 }
-__device__ __forceinline__ void bar_sync_wg(int id) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
-}
 __device__ __forceinline__ void bar_arrive(int id) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(kConsumers * 128) : "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// d (64 x 128, fp32) = A (64 x 16, shared, K-major) * B (16 x 128, shared,
-// K-major), plus d when acc != 0.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(acc));
-}
-
-// d (64 x 128, fp32) += A (64 x 16, registers) * B (16 x 128, shared, MN-major).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// d (64 x 64, fp32) += A (64 x 16, registers) * B (16 x 64, shared, MN-major).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <int D>
-__device__ __forceinline__ void wgmma_pv_step(float (&acc)[D / 2], const uint32_t (&a)[4],
-                                              uint64_t b);
-template <>
-__device__ __forceinline__ void wgmma_pv_step<128>(float (&acc)[64], const uint32_t (&a)[4],
-                                                   uint64_t b) {
-  wgmma_rs_n128(acc, a, b);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv_step<64>(float (&acc)[32], const uint32_t (&a)[4],
-                                                  uint64_t b) {
-  wgmma_rs_n64(acc, a, b);
 }
 
 // V read MN-major: the 64-column blocks of D lie kWgBK * 128 bytes apart
@@ -636,20 +459,7 @@ __device__ __forceinline__ void wgmma_pv(float (&acc)[D / 2], const uint32_t (&p
                                          uint32_t sV) {
 #pragma unroll
   for (int kk = 0; kk < kWgBK / 16; ++kk)
-    wgmma_pv_step<D>(acc, pa[kk], sw128_desc(sV + kk * 2048, kVLbo, kVSbo));
-}
-
-// P in bf16, in the A-operand layout: the accumulator fragments of two
-// neighbouring 8-key column blocks make one 16-key k-step.
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[kWgBK / 16][4],
-                                       const float (&sc)[kWgBK / 2]) {
-#pragma unroll
-  for (int kk = 0; kk < kWgBK / 16; ++kk) {
-    pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
-    pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-    pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-    pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
-  }
+    wgmma_rs<D>(acc, pa[kk], sw128_desc(sV + kk * 2048, kVLbo, kVSbo));
 }
 
 // One tile of the online softmax, in place: sc[i] holds the raw score of
@@ -816,7 +626,7 @@ fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       wg_wait<0>();
       fence_regs(sc);
       softmax(0);
-      pack_p(pa, sc);
+      pack_a(pa, sc);
     }
     for (int it = 1; it < ntiles; ++it) {
       const int s = it % kStages, sp = (it - 1) % kStages;
@@ -841,7 +651,7 @@ fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       if (lane == 0) mbar_arrive(empty + 8 * sp);  // this warp is done with tile it-1's stage
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
-      pack_p(pa, sc);
+      pack_a(pa, sc);
     }
     if (ntiles > 0) {
       const int sl = (ntiles - 1) % kStages;
@@ -868,8 +678,7 @@ fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       const int row = wrow + 8 * r;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
-        const uint32_t dst = sQw + (j / 8) * (kWgBQ * 128) + row * 128 +
-                             (((j % 8) ^ (row % 8)) << 4) + 4 * t4;
+        const uint32_t dst = sQw + (j / 8) * (kWgBQ * 128) + sw128_offset(row, j % 8) + 4 * t4;
         const uint32_t v = pack_bf16(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
         asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(dst), "r"(v) : "memory");
       }
@@ -884,55 +693,12 @@ fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 #pragma unroll
       for (int c = 0; c < D / 64; ++c)
         tma_store_4d(&tm_o, sQw + c * (kWgBQ * 128), c * 64, h, q0 + wg * 64, b);
-      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      tma_store_commit_and_wait();
     }
   }
 }
 
 // ------------------------------------------------------------ host side
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-constexpr int kErrNoEncoder = -2, kErrTensorMap = -3;
-
-// A (B, T, H, D) bf16 tensor as a 4-D map (D, H, T, B) read or written in
-// boxes of 64 columns x `rows` positions of one head, 128-byte swizzled;
-// rows past T read as zeros and are not written.
-int make_map(CUtensorMap* map, const void* ptr, int B, int T, int H, int D, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return kErrNoEncoder;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
-                                 (cuuint64_t)T * H * D * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kErrTensorMap;
-}
 
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, void* lse,

@@ -26,31 +26,47 @@
 //
 // What bounds it: at the training shape (T = 1024, D = 128) both kernels
 // are far above the card's ops-per-byte line, so operations bound them,
-// i.e. the tensor cores. Two versions of each, chosen by input type:
-// - bfloat16 (the training path): dq_kernel_mma / dkv_kernel_mma, four warps
-//   of 16 rows (queries in dQ, keys in dK/dV) multiplying on the tensor
-//   cores with mma.sync m16n8k16 (bf16 in, fp32 accumulate), as K1 does:
-//   S and dP come from fragments of shared-memory tiles; P and dS are
-//   rounded to bf16 and reused from registers as the A operand of the next
-//   product (FlashAttention-2 does the same); K, Q and dO reach that
-//   product as B operands through ldmatrix.trans. Tile rows are padded by
-//   16 bytes so the fragment loads hit distinct banks.
+// i.e. the tensor cores. The versions, chosen by input type and D:
+// - bfloat16 dK/dV at D = 64 and 128 (the training path): dkv_kernel_wgmma,
+//   the FlashAttention-3 backward without its dQ. Only wgmma reaches
+//   Hopper's tensor-core rate, and only if the tiles arrive while the
+//   previous ones are multiplied, so:
+//   * tiles: 128 keys per block in two consumer warpgroups of 64; K and V
+//     come in once by TMA, then (Q, dO) tiles of 64 queries stream through
+//     a 3-stage mbarrier ring with their lse and delta, over every (group
+//     head, query tile) the key tile sees. A producer warpgroup issues the
+//     loads and gives its registers to the consumers (setmaxnreg 24 / 240:
+//     dK and dV take 128 fp32 registers per consumer thread at D = 128).
+//   * products: S^T = K Q^T and dP^T = V dO^T take K and V as shared A
+//     operands and Q and dO as K-major B operands; P^T and dS^T are rounded
+//     to bf16 in registers, where the accumulator layout is the A-operand
+//     layout of dV += P^T dO and dK += dS^T Q, which read dO and Q MN-major
+//     through the same swizzled tiles (as K1 reads V).
+//   * softmax work: exp2 domain, one FFMA and one ex2 per score; only the
+//     diagonal tile of a causal run tests positions (the ragged edges need
+//     no test, see the kernel).
+//   * scheduling: the key tile with the most queries below it starts first.
+//   * epilogue: dK and dV staged over K and V in shared memory, TMA stores
+//     that clip rows past Tk.
+// - bfloat16 dQ, and dK/dV at D = 16 (the reduced configs): dq_kernel_mma /
+//   dkv_kernel_mma, four warps of 16 rows (queries in dQ, keys in dK/dV)
+//   multiplying with mma.sync m16n8k16 (bf16 in, fp32 accumulate): S and dP
+//   come from fragments of shared-memory tiles; P and dS are rounded to bf16
+//   and reused from registers as the A operand of the next product; K, Q and
+//   dO reach that product as B operands through ldmatrix.trans. Tile rows
+//   are padded by 16 bytes so the fragment loads hit distinct banks.
 // - float32 (parity checks): dq_kernel / dkv_kernel, scalar fp32 FMAs on
 //   the CUDA cores, tiles converted to fp32 in shared memory (row stride
 //   D + 1, so column walks hit distinct banks), 128 threads as 8 row groups
 //   x 16 column lanes; the result differs from an fp32 reference only in
 //   the order of sums.
-// Not yet done: wgmma, TMA and double-buffered tile loads (later work).
-//
-// The mma helpers below are the ones of flash_attention.cu: each .cu is
-// its own library, and a shared header would escape the build's source
-// hash (kernels/build.py).
+// Not yet done: dQ on wgmma + TMA (the next kernel of the redesign).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "hopper.cuh"  // mbarriers, TMA, wgmma, the tensor-map encoder (shared with K1)
 
 namespace {
 
@@ -340,11 +356,6 @@ __device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // c += a (16x16, row) * b (16x8, col); bf16 inputs, fp32 accumulators.
 __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], uint32_t b0,
                                           uint32_t b1) {
@@ -593,6 +604,225 @@ dkv_kernel_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   }
 }
 
+// ------------------------------------------ dK, dV: bfloat16, D = 64 / 128
+
+constexpr int kDkvBK = 128;          // keys per block: 64 per consumer warpgroup
+constexpr int kDkvBQ = 64;           // queries per streamed (Q, dO) tile
+constexpr int kDkvStages = 3;        // depth of the (Q, dO, lse, delta) ring
+constexpr int kDkvThreads = 3 * 128; // two consumer warpgroups + one producer warpgroup
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory, in bytes from a 1024-byte aligned base. K and V (loaded
+// once) and each stage's Q and dO are stored as D / 64 column blocks of
+// (rows x 64) bf16, 128-byte swizzled, one TMA box each; each stage also
+// holds lse * log2(e) and delta of its 64 queries in fp32.
+template <int D>
+struct DkvSmem {
+  static constexpr uint32_t kv_bytes = kDkvBK * D * 2;    // K or V
+  static constexpr uint32_t tile_bytes = kDkvBQ * D * 2;  // Q or dO of one stage
+  static constexpr uint32_t k_off = 0;
+  static constexpr uint32_t v_off = kv_bytes;
+  static constexpr uint32_t q_off = 2 * kv_bytes;  // stage s: Q at + 2 s tile_bytes, dO after it
+  static constexpr uint32_t stat_off = q_off + kDkvStages * 2 * tile_bytes;
+  static constexpr uint32_t bar_off = stat_off + kDkvStages * 2 * kDkvBQ * 4;
+  // kv_full, then full and empty per stage
+  static constexpr size_t total = bar_off + 8 * (1 + 2 * kDkvStages) + 1024;
+};
+
+// One block per (128-key tile, KV head, batch), the longest causal tiles
+// first: the linear block index takes the key tile slowest, so key tile 0
+// of every (head, batch) starts in the first wave.
+//
+// The producer warpgroup keeps setmaxnreg 24: its first warp issues the
+// TMA loads (K and V once, then Q and dO per stage), its second warp copies
+// lse * log2(e) and delta of the stage's 64 queries (0 past Tq). A stage is
+// full after 1 + 32 arrivals and the TMA bytes, and empty after one arrival
+// per consumer warp.
+//
+// Each consumer warpgroup owns 64 keys and, per (group head, query tile):
+//   S^T = K Q^T and dP^T = V dO^T   (wgmma, K / V and Q / dO from shared
+//                                    memory, both K-major)
+//   P^T = 2^(S^T scale log2(e) - lse log2(e)), 0 above the diagonal
+//   dS^T = P^T (dP^T - delta) scale
+//   dV += P^T dO, dK += dS^T Q      (wgmma, P^T and dS^T rounded to bf16 in
+//                                    registers as the A operand, dO and Q
+//                                    read MN-major through the same tiles)
+// Only the diagonal tile of a causal run tests positions. Rows past Tq have
+// zero Q and dO and lse = delta = 0, so they add exactly 0; rows past Tk are
+// computed and never stored. A tile whose queries all lie before the
+// warpgroup's first key is skipped.
+template <int D>
+__global__ void __launch_bounds__(kDkvThreads, 1)
+dkv_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                 const __grid_constant__ CUtensorMap tm_dk, const __grid_constant__ CUtensorMap tm_dv,
+                 const float* __restrict__ lse, const float* __restrict__ delta, int B, int Tq,
+                 int Tk, int Hq, int Hkv, int causal, float scale) {
+  using L = DkvSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sK = base + L::k_off, sV = base + L::v_off, sQ0 = base + L::q_off;
+  float* stats = reinterpret_cast<float*>(smem_raw + (base - raw) + L::stat_off);
+  const uint32_t kv_full = base + L::bar_off;
+  const uint32_t full = kv_full + 8, empty = full + 8 * kDkvStages;  // + 8 * stage
+
+  const int nhb = Hkv * B;
+  const int kt = blockIdx.x / nhb, hk = blockIdx.x % nhb % Hkv, b = blockIdx.x % nhb / Hkv;
+  const int k0 = kt * kDkvBK, group = Hq / Hkv;
+  const int qstart = causal ? k0 : 0;  // queries before k0 see none of these keys
+  const int ntq = qstart < Tq ? (Tq - qstart + kDkvBQ - 1) / kDkvBQ : 0;
+  const int n_it = group * ntq;  // (group head, query tile) pairs, head slowest
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kDkvStages; ++s) {
+      mbar_init(full + 8 * s, 1 + 32);
+      mbar_init(empty + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (warp == 8 && lane == 0 && n_it > 0) {
+      mbar_expect_tx(kv_full, 2 * L::kv_bytes);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load_4d(sK + c * kDkvBK * 128, &tm_k, kv_full, c * 64, hk, k0, b);
+        tma_load_4d(sV + c * kDkvBK * 128, &tm_v, kv_full, c * 64, hk, k0, b);
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % kDkvStages, h = hk * group + it / ntq;
+        const int q0 = qstart + (it % ntq) * kDkvBQ;
+        const uint32_t sq = sQ0 + s * 2 * L::tile_bytes, sdo = sq + L::tile_bytes;
+        mbar_wait(empty + 8 * s, ((it / kDkvStages) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, 2 * L::tile_bytes);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_4d(sq + c * kDkvBQ * 128, &tm_q, full + 8 * s, c * 64, h, q0, b);
+          tma_load_4d(sdo + c * kDkvBQ * 128, &tm_do, full + 8 * s, c * 64, h, q0, b);
+        }
+      }
+    } else if (warp == 9) {
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % kDkvStages, h = hk * group + it / ntq;
+        const int q0 = qstart + (it % ntq) * kDkvBQ;
+        float* st = stats + s * 2 * kDkvBQ;
+        mbar_wait(empty + 8 * s, ((it / kDkvStages) & 1) ^ 1);
+        for (int i = lane; i < kDkvBQ; i += 32) {
+          const int t = q0 + i;
+          const size_t row = ((size_t)b * Hq + h) * Tq + t;
+          st[i] = t < Tq ? lse[row] * kLog2e : 0.f;
+          st[kDkvBQ + i] = t < Tq ? delta[row] : 0.f;
+        }
+        mbar_arrive(full + 8 * s);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int wg = warp / 4, g = lane / 4, t4 = lane % 4;
+    const int wrow = (warp % 4) * 16 + g;       // this thread's keys: wrow, wrow + 8 of the 64
+    const int kmin = k0 + wg * 64, key0 = kmin + wrow;
+    const uint32_t sKw = sK + wg * 64 * 128, sVw = sV + wg * 64 * 128;
+    const float sl2 = scale * kLog2e;
+    float dk[D / 2], dv[D / 2], sc[32], dp[32];
+    uint32_t pa[4][4], da[4][4];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    if (n_it > 0) mbar_wait(kv_full, 0);
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % kDkvStages, q0 = qstart + (it % ntq) * kDkvBQ;
+      mbar_wait(full + 8 * s, (it / kDkvStages) & 1);
+      if (!(causal && q0 + kDkvBQ - 1 < kmin)) {
+        const uint32_t sq = sQ0 + s * 2 * L::tile_bytes, sdo = sq + L::tile_bytes;
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t col = (kk / 4) * (kDkvBK * 128) + (kk % 4) * 32;
+          const uint32_t qcol = (kk / 4) * (kDkvBQ * 128) + (kk % 4) * 32;
+          wgmma_ss_n64(sc, sw128_desc(sKw + col, 16, 1024), sw128_desc(sq + qcol, 16, 1024), kk);
+        }
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t col = (kk / 4) * (kDkvBK * 128) + (kk % 4) * 32;
+          const uint32_t qcol = (kk / 4) * (kDkvBQ * 128) + (kk % 4) * 32;
+          wgmma_ss_n64(dp, sw128_desc(sVw + col, 16, 1024), sw128_desc(sdo + qcol, 16, 1024), kk);
+        }
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(sc);
+        fence_regs(dp);
+
+        // sc[i] and dp[i] belong to key key0 + 8 ((i >> 1) & 1) and query
+        // q0 + 8 (i / 4) + 2 t4 + (i & 1).
+        const float* st = stats + s * 2 * kDkvBQ;
+        const bool need_mask = causal && kmin + 63 > q0;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const float2 l2 = *reinterpret_cast<const float2*>(st + 8 * n + 2 * t4);
+          const float2 d2 = *reinterpret_cast<const float2*>(st + kDkvBQ + 8 * n + 2 * t4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * n + e;
+            float p = ex2(fmaf(sc[i], sl2, -((e & 1) ? l2.y : l2.x)));
+            if (need_mask && key0 + 8 * ((e >> 1) & 1) > q0 + 8 * n + 2 * t4 + (e & 1)) p = 0.f;
+            dp[i] = p * (dp[i] - ((e & 1) ? d2.y : d2.x)) * scale;
+            sc[i] = p;
+          }
+        }
+        pack_a(pa, sc);
+        pack_a(da, dp);
+
+        fence_regs(dk);
+        fence_regs(dv);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {  // 16 queries (2048 bytes of a tile) per k-step
+          wgmma_rs<D>(dv, pa[kk], sw128_desc(sdo + kk * 2048, kDkvBQ * 128, 1024));
+          wgmma_rs<D>(dk, da[kk], sw128_desc(sq + kk * 2048, kDkvBQ * 128, 1024));
+        }
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(dk);
+        fence_regs(dv);
+        fence_regs(pa);
+        fence_regs(da);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * s);  // this warp is done with the stage
+    }
+
+    // Epilogue: dK and dV in bf16 over this warpgroup's rows of the K and V
+    // tiles (free once its last product is done), swizzled as TMA reads
+    // them, then one TMA store per column block; rows past Tk are not written.
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = wrow + 8 * r;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const uint32_t off = (j / 8) * (kDkvBK * 128) + sw128_offset(row, j % 8) + 4 * t4;
+        const uint32_t vk = pack_bf16(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
+        const uint32_t vv = pack_bf16(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(sKw + off), "r"(vk) : "memory");
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(sVw + off), "r"(vv) : "memory");
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    bar_sync_wg(1 + wg);
+    if (warp % 4 == 0 && lane == 0 && kmin < Tk) {
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {
+        tma_store_4d(&tm_dk, sKw + c * (kDkvBK * 128), c * 64, hk, kmin, b);
+        tma_store_4d(&tm_dv, sVw + c * (kDkvBK * 128), c * 64, hk, kmin, b);
+      }
+      tma_store_commit_and_wait();
+    }
+  }
+}
+
 // --------------------------------------------------------------- launch
 
 template <int D>
@@ -664,13 +894,37 @@ int launch_dkv_mma(const void* q, const void* k, const void* v, const void* dout
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                     const void* lse, const void* delta, void* dk, void* dv, int B, int Tq,
+                     int Tk, int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
+  constexpr size_t smem = DkvSmem<D>::total;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      dkv_kernel_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  CUtensorMap tq, tk, tv, tdo, tdk, tdv;
+  int rc = make_map(&tq, q, B, Tq, Hq, D, kDkvBQ);
+  if (rc == 0) rc = make_map(&tdo, dout, B, Tq, Hq, D, kDkvBQ);
+  if (rc == 0) rc = make_map(&tk, k, B, Tk, Hkv, D, kDkvBK);
+  if (rc == 0) rc = make_map(&tv, v, B, Tk, Hkv, D, kDkvBK);
+  if (rc == 0) rc = make_map(&tdk, dk, B, Tk, Hkv, D, 64);
+  if (rc == 0) rc = make_map(&tdv, dv, B, Tk, Hkv, D, 64);
+  if (rc != 0) return rc;
+  const int grid = (Tk + kDkvBK - 1) / kDkvBK * Hkv * B;
+  dkv_kernel_wgmma<D><<<grid, kDkvThreads, smem, stream>>>(
+      tq, tk, tv, tdo, tdk, tdv, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), B, Tq, Tk, Hq, Hkv, causal, scale);
+  return (int)cudaGetLastError();
+}
+
 using DqFn = int (*)(const void*, const void*, const void*, const void*, const void*,
                      const void*, void*, int, int, int, int, int, int, float, cudaStream_t);
 using DkvFn = int (*)(const void*, const void*, const void*, const void*, const void*,
                       const void*, void*, void*, int, int, int, int, int, int, float,
                       cudaStream_t);
 
-// float32 -> the scalar kernels, bfloat16 -> the tensor-core kernels.
+// float32 -> the scalar kernels; bfloat16 -> the tensor-core kernels: dQ on
+// mma.sync, dK/dV on wgmma + TMA for D = 64 / 128 and on mma.sync for D = 16.
 DqFn pick_dq(int dtype, int D) {
   if (dtype == 0) {
     switch (D) {
@@ -698,8 +952,8 @@ DkvFn pick_dkv(int dtype, int D) {
   } else if (dtype == 1) {
     switch (D) {
       case 16: return launch_dkv_mma<16>;
-      case 64: return launch_dkv_mma<64>;
-      case 128: return launch_dkv_mma<128>;
+      case 64: return launch_dkv_wgmma<64>;
+      case 128: return launch_dkv_wgmma<128>;
     }
   }
   return nullptr;

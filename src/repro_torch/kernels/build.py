@@ -3,10 +3,11 @@
 Each ``src/repro_torch/csrc/<name>.cu`` has a plain C interface and becomes
 ``build/lib<name>-<hash>.so`` at the repo root, compiled by ``nvcc`` for
 ``sm_90a`` and loaded with ``ctypes``. The file name carries a hash of the
-source and the flags, so a changed source is rebuilt and an unchanged one is
-loaded as it is. ``build()`` compiles every missing library in parallel (one
-``nvcc`` per source, all started together) and is what ``chip_smoke.py``
-times; ``library()`` builds one on demand.
+source, the shared headers (``csrc/*.cuh``) and the flags, so a changed
+source or header is rebuilt and an unchanged one is loaded as it is.
+``build()`` compiles every missing library in parallel (one ``nvcc`` per
+source, all started together) and is what ``chip_smoke.py`` times;
+``library()`` builds one on demand.
 """
 from __future__ import annotations
 
@@ -39,9 +40,13 @@ def _nvcc() -> str:
 
 
 def target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of that source,
+    every shared header ``csrc/*.cuh`` (name and text) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> float:

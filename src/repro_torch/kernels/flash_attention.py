@@ -51,18 +51,6 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
-def per_batch_i32(x, B: int, default: int, device, upper: int | None = None) -> torch.Tensor:
-    """None, an int or a (B,) / scalar tensor -> a contiguous (B,) int32
-    tensor on device (never the caller's, once clipped to ``upper``)."""
-    if x is None:
-        x = default
-    if isinstance(x, int):
-        return torch.full((B,), x if upper is None else min(x, upper), dtype=torch.int32,
-                          device=device)
-    t = x.to(device=device, dtype=torch.int32).reshape(-1).expand(B)
-    return t.clamp(max=upper) if upper is not None else t.contiguous()
-
-
 def raw_stream(t: torch.Tensor) -> int:
     """The current CUDA stream of t's device as the integer handle the C
     functions take (cheaper per call than a ``torch.cuda.Stream`` object)."""
@@ -70,14 +58,14 @@ def raw_stream(t: torch.Tensor) -> int:
 
 
 def _offset_arg(x, B: int, default: int, device):
-    """(tensor, scalar) for the kernel: None or an int goes as the scalar
-    with no tensor (no launch to fill one); a tensor as a (B,) int32 on the
-    device."""
+    """(tensor, scalar) for a kernel (K1's q_offset and kv_len, K4's kv_len):
+    None or an int goes as the scalar with no tensor (no launch to fill
+    one); a (B,) or scalar tensor as a contiguous (B,) int32 on the device."""
     if x is None:
         return None, default
     if isinstance(x, int):
         return None, x
-    return per_batch_i32(x, B, default, device), 0
+    return x.to(device=device, dtype=torch.int32).reshape(-1).expand(B).contiguous(), 0
 
 
 def check_cuda(name: str, *ts: torch.Tensor) -> None:

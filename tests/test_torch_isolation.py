@@ -1,5 +1,5 @@
-"""``repro_torch`` and ``chip_smoke.py`` stand alone: they import neither
-jax nor ``repro``, and nothing in them falls back to the CPU when CUDA is
+"""``repro_torch``, ``chip_smoke.py`` and the tools under ``tools/`` stand
+alone: they import neither jax nor ``repro``, and nothing in them falls back to the CPU when CUDA is
 asked for and absent."""
 import ast
 import os
@@ -13,7 +13,8 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + sorted((ROOT / "tools").glob("*.py")))
 
 
 def _imported_roots(path: Path):

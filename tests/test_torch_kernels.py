@@ -112,13 +112,16 @@ def test_decode_attention_scalar_kv_len_matches_sdpa():
     _close(out, np.asarray(want)[:, 0], "float32", rtol=1e-3)
 
 
+@pytest.mark.parametrize("blk_s", [64, 256])  # the split length before and since BLK_S = 256
 @pytest.mark.parametrize("kv_len", [(256, 256), (64, 130)])
-def test_combine_splits_matches_jax(kv_len):
+def test_combine_splits_matches_jax(kv_len, blk_s):
     """The plain merge of the combine kernel against repro's combine_splits,
-    over the splits that hold a valid key (the rest are never written)."""
+    over the splits that hold a valid key (the rest are never written), at
+    the old and the new split length (kv_len scaled with it)."""
     from repro.kernels.decode_attention import combine_splits as jcombine
 
-    blk_s, ns = 64, 4
+    kv_len = tuple(n * blk_s // 64 for n in kv_len)
+    ns = 4
     acc, m, l = _arrays(10, (2, 4, ns, 16), (2, 4, ns), (2, 4, ns))
     l = np.abs(l)
     out = ref_combine(torch.from_numpy(acc), torch.from_numpy(m), torch.from_numpy(l),
@@ -415,3 +418,87 @@ def test_int_offsets_reach_the_kernel_as_scalars():
     assert _offset_arg(5, 3, 17, "cpu") == (None, 5)
     t, s = _offset_arg(torch.tensor([1, 2, 3]), 3, 17, "cpu")
     assert s == 0 and t.dtype == torch.int32 and t.tolist() == [1, 2, 3]
+
+
+# ------------------------------------------- K4's wrapper, the build's hash
+
+
+@pytest.mark.parametrize("kv_len", [None, 38, "tensor"])
+def test_decode_kv_len_reaches_the_kernel_as_a_scalar(kv_len, monkeypatch):
+    """K4 and K4b through their wrappers, the library replaced by a
+    recorder: an int (the decode step's idx + 1) or None goes to both C
+    functions as a null pointer and a scalar (S for None), and torch.full is
+    never called; a tensor goes as a pointer to a (B,) int32 on the device.
+    Each wrapper counts one launch."""
+    from repro_torch.kernels import decode_attention as dec
+
+    calls = []
+
+    class FakeLib:
+        def decode_attention_splits(self, *args):
+            calls.append(args)
+            return 0
+
+        def decode_attention_combine(self, *args):
+            calls.append(args)
+            return 0
+
+    def no_fill(*a, **k):
+        raise AssertionError("torch.full called on the decode path")
+
+    monkeypatch.setattr(dec, "_lib", lambda: FakeLib())
+    monkeypatch.setattr(dec, "check_cuda", lambda *a: None)
+    monkeypatch.setattr(dec, "raw_stream", lambda t: 0)
+    monkeypatch.setattr(torch, "full", no_fill)
+    monkeypatch.setattr(dec, "launches", dec.collections.Counter())
+    q, k = torch.zeros(2, 4, 16), torch.zeros(2, 300, 2, 16)
+    arg = torch.tensor([5, 38]) if kv_len == "tensor" else kv_len
+    acc, m, l, kl = dec.decode_attention_splits(q, k, k, arg)
+    o = dec.combine_splits(acc, m, l, kl, out_dtype=q.dtype)
+    assert o.shape == (2, 4, 16) and acc.shape == (2, 4, dec.n_splits(300), 16)
+    splits, combine = calls
+    assert splits[13] == dec.n_splits(300) and splits[14] == dec.BLK_S
+    if kv_len == "tensor":
+        assert kl.dtype == torch.int32 and kl.shape == (2,) and kl.tolist() == [5, 38]
+        assert splits[3] == combine[3] == kl.data_ptr() and splits[4] == combine[4] == 0
+    else:
+        want = 300 if kv_len is None else kv_len
+        assert kl == want and splits[3] is None and combine[3] is None
+        assert splits[4] == combine[4] == want
+    assert dec.launches == {"decode_attention": 1, "decode_combine": 1}
+
+
+@pytest.mark.parametrize("S,kv_len,nsplit,nvalid", [
+    (1056, 1040, 5, 5),   # the serve path's decode step: 1056-slot cache
+    (1056, 1024, 5, 4),   # the first decode step's kv_len ends a split
+    (1056, 1025, 5, 5),   # one row into the fifth split
+    (1056, 1, 5, 1),
+    (1056, 5000, 5, 5),   # kv_len past the cache is clipped
+    (80, 37, 1, 1),       # the reduced config's cache
+])
+def test_decode_split_count(S, kv_len, nsplit, nvalid):
+    """The split count K4's wrapper derives for its BLK_S (256 rows): the
+    grid's splits for the cache, and the ones that hold a key below kv_len."""
+    from repro_torch.kernels.decode_attention import BLK_S, n_splits, valid_splits
+
+    assert BLK_S == 256
+    assert n_splits(S) == nsplit and valid_splits(kv_len, S) == nvalid
+
+
+def test_build_target_hashes_the_shared_header(tmp_path, monkeypatch):
+    """An edit of csrc/hopper.cuh changes the library name (so the build)
+    of both of its users, K1's and K2 / K3's sources."""
+    import shutil
+
+    from repro_torch.kernels import build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    users = [p.stem for p in csrc.glob("*.cu") if '#include "hopper.cuh"' in p.read_text()]
+    assert sorted(users) == ["flash_attention", "flash_attention_bwd"]
+    before = {n: build.target(n) for n in users}
+    assert all(build.target(n) == before[n] for n in users)  # stable
+    (csrc / "hopper.cuh").write_text((csrc / "hopper.cuh").read_text() + "\n// edited\n")
+    after = {n: build.target(n) for n in users}
+    assert all(after[n] != before[n] for n in users)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Times the PyTorch port's flash-attention forward (K1) and RMSNorm (K5) of
-one checkout on one CUDA card, beside their PyTorch library yardsticks.
+"""Times the PyTorch port's kernels of one checkout on one CUDA card, beside
+their PyTorch library yardsticks: flash-attention forward (K1), dQ (K2) and
+dK/dV (K3), split-K decode (K4, and K4 + its combine K4b) and RMSNorm (K5).
 
     python3 tools/torch_kernel_times.py [--root DIR] [--tag NAME]
 
@@ -12,9 +13,15 @@ kernels are built into ``DIR/build`` by that checkout's own ``build.py``.
 
 Shapes are the serve path's full width (qwen3-1.7b, 8 requests x 1024
 prompt tokens): K1 over a 1056-slot cache with kv_len 1024, causal, 16 / 8
-heads of 128; K1 at the training shape (4 x 1024, uncached); K5 on the
-bf16 rows of prefill (8192, 2048) and (8192 x 16, 128), of the train step
-(4096, 2048) and of one decode step (8, 2048) and (8 x 16, 128). Each time is the median of 15
+heads of 128; K1, K2 and K3 at the training shape (4 x 1024, uncached,
+causal), with SDPA's backward (dQ + dK + dV) as the yardstick of K2 and K3;
+K4 at a decode step (8 sequences over a 1056-slot cache, kv_len 1040, an
+int as the decode path passes it): the split kernel alone (``k4_split``,
+only its own kernel counted, also at splits of 128 and 512 rows), K4 + K4b
+(``k4_total``, every kernel of the call: an older tree's kv_len fill
+included) and SDPA's decode call; K5 on the bf16 rows of prefill (8192,
+2048) and (8192 x 16, 128), of the train step (4096, 2048) and of one
+decode step (8, 2048) and (8 x 16, 128). Each time is the median of 15
 calls between CUDA events with L2 flushed before each (``ms``) and the
 kernels' own device time per call from torch.profiler (``device_ms``). The
 last line is one JSON object.
@@ -44,7 +51,9 @@ def main() -> int:
         print("torch_kernel_times: no CUDA card", file=sys.stderr)
         return 2
     from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rms
 
     build.build()
@@ -70,10 +79,11 @@ def main() -> int:
         torch.cuda.synchronize()
         return statistics.median(a.elapsed_time(b) for a, b in ev)
 
-    def device_ms(fn, reps=10):
+    def device_ms(fn, reps=10, only=None):
         """Kernel time per call from torch.profiler, the flush's uint8 fill
-        left out by name, each kernel's mean time times its launches per
-        call; a session that recorded none of fn's kernels is run again."""
+        left out by name (and, with ``only``, every kernel whose name lacks
+        it), each kernel's mean time times its launches per call; a session
+        that recorded none of fn's kernels is run again."""
         for _ in range(3):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(reps):
@@ -82,7 +92,8 @@ def main() -> int:
                 torch.cuda.synchronize()
             got = [(e.self_device_time_total, e.count) for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA
-                   and "FillFunctor<unsigned char>" not in e.key and e.count >= reps // 2]
+                   and "FillFunctor<unsigned char>" not in e.key and e.count >= reps // 2
+                   and (only is None or only in e.key)]
             if got:
                 return sum(us / n * round(n / reps) for us, n in got) / 1e3
         return None
@@ -93,6 +104,13 @@ def main() -> int:
     xq, sq = randn(8192 * 16, 128), randn(128, dtype=torch.float32)
     sb, sqb = s.to(bf), sq.to(bf)  # the fused library kernel wants the weight in x's type
     xt, xd, xdq = randn(4096, 2048), randn(8, 2048), randn(8 * 16, 128)
+    dot = randn(4, 1024, 16, 128)
+    ot, lset = fa.flash_attention_fwd(qt, kt, vt)
+    delta = ref.attention_delta(ot, dot).contiguous()
+    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_(True) for t in (qt, kt, vt))
+    os_ = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+    dos = dot.transpose(1, 2)
+    qd, kv_len = randn(8, 16, 128), 1040
     calls = {
         "k1_serve": lambda: fa.flash_attention_fwd(q, k, v, q_offset=0, kv_len=1024),
         "sdpa_serve": lambda: F.scaled_dot_product_attention(
@@ -101,6 +119,16 @@ def main() -> int:
         "k1_train": lambda: fa.flash_attention_fwd(qt, kt, vt),
         "sdpa_train": lambda: F.scaled_dot_product_attention(
             qt.transpose(1, 2), kt.transpose(1, 2), vt.transpose(1, 2), is_causal=True,
+            enable_gqa=True),
+        "k3_train": lambda: fa.launch_dkv(qt, kt, vt, dot, lset, delta),
+        "k2_train": lambda: fa.launch_dq(qt, kt, vt, dot, lset, delta),
+        "sdpa_bwd_train": lambda: torch.autograd.grad(os_, (qs, ks, vs), dos, retain_graph=True),
+        "k4_split": lambda: dec.decode_attention_splits(qd, k, v, kv_len),
+        "k4_split_blk128": lambda: dec.decode_attention_splits(qd, k, v, kv_len, blk_s=128),
+        "k4_split_blk512": lambda: dec.decode_attention_splits(qd, k, v, kv_len, blk_s=512),
+        "k4_total": lambda: dec.decode_attention(qd, k, v, kv_len),
+        "sdpa_decode": lambda: F.scaled_dot_product_attention(
+            qd[:, :, None], k[:, :kv_len].transpose(1, 2), v[:, :kv_len].transpose(1, 2),
             enable_gqa=True),
         "k5_2048": lambda: rms.rmsnorm(x, s),
         "rms_norm_2048": lambda: F.rms_norm(x, (2048,), weight=sb, eps=1e-6),
@@ -112,7 +140,8 @@ def main() -> int:
     }
     out = {"tag": args.tag, "root": args.root}
     for name, fn in calls.items():
-        out[name] = {"ms": ms(fn), "device_ms": device_ms(fn)}
+        only = "splits_kernel" if name.startswith("k4_split") else None
+        out[name] = {"ms": ms(fn), "device_ms": device_ms(fn, only=only)}
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     out["card"] = card
