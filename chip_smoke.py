@@ -8,20 +8,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
   2. build the CUDA kernels from the repo's sources (one nvcc per source);
   3. hold every kernel against its plain PyTorch version on the card, at the
      serve and training paths' full-width shapes and at reduced ones (GQA
-     group 2 and 4, MQA, non-causal, Tq and Tk that are not multiples of
-     K1's or K3's tiles, a kv_len that ends inside a key tile, one row into a
-     split, at 1 or at the cache's end, an int kv_len next to a (B,) tensor,
-     q_offset > 0 over a cache longer than kv_len, head dims 16 / 64 / 128,
-     RMSNorm rows of 16 / 64 / 100 / 128 / 2048 / 5000), in float32 (atol
-     1e-4: only the order of sums differs) and bfloat16 (atol 2e-2, rtol
-     1e-2); K1's lse too, against the plain logsumexp; hold the autograd
-     Functions (flash attention on K1 + K2 + K3, RMSNorm on K5) against
-     autograd of the plain versions and check that no kernel output leaves
-     the graph; then time each kernel at its full-width shape beside its
-     bound, its plain version and one PyTorch library call as a yardstick
-     (the port never calls that library function): CUDA events around the
-     call (ms) and the kernels' own device time from torch.profiler
-     (device_ms, library_device_ms); K4's split kernel is also timed alone;
+     group 2, 4 and 8, MQA, non-causal, Tq and Tk that are not multiples of
+     K1's, K2's or K3's tiles, a kv_len that ends inside a key tile, one row
+     into a split, at 1 or at the cache's end, rows of one batch that end in
+     the first split and at the cache's end, an int kv_len next to a (B,)
+     tensor, q_offset > 0 over a cache longer than kv_len, head dims 16 / 64
+     / 128, RMSNorm rows of 16 / 64 / 100 / 128 / 2048 / 5000), in float32
+     (atol 1e-4: only the order of sums differs) and bfloat16 (atol 2e-2,
+     rtol 1e-2); K1's lse too, against the plain logsumexp; K2 on rows whose
+     scores all lie near -120 (dQ finite); K4 at kv_len 0 (exactly 0) and
+     in back-to-back calls at two shapes (its arrival counters reset); hold
+     the autograd Functions (flash attention on K1 + K2 + K3, RMSNorm on K5)
+     against autograd of the plain versions and check that no kernel output
+     leaves the graph; then time each kernel at its full-width shape beside
+     its bound, its plain version and one PyTorch library call as a
+     yardstick (the port never calls that library function): CUDA events
+     around the call (ms) and the kernels' own device time from
+     torch.profiler (device_ms, library_device_ms);
   4. serve-path parity: qwen3-1.7b at full width with 2 layers in float32
      serves 2 ragged requests (prefill + 4 decode steps) on the card through
      the kernels and on the CPU through the plain versions; logits agree
@@ -172,7 +175,7 @@ def check_kernels(dev, timer):
     import torch.nn.functional as F
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    errs = {"flash_attention": [], "decode_attention": [], "decode_combine": [], "rmsnorm": []}
+    errs = {"flash_attention": [], "decode_attention": [], "rmsnorm": []}
     flash_cases = [  # B, Tq, Tk, Hq, Hkv, D, q_offset, kv_len, causal
         (B_SERVE, PROMPT, MAX_LEN, HQ, HKV, HD, 0, PROMPT, True),   # full-width prefill
         (B_TRAIN, SEQ_TRAIN, SEQ_TRAIN, HQ, HKV, HD, None, None, True),  # full-width training
@@ -189,6 +192,7 @@ def check_kernels(dev, timer):
         (B_SERVE, MAX_LEN, HQ, HKV, HD, 1),                # one key
         (B_SERVE, MAX_LEN, HQ, HKV, HD, dec.BLK_S + 1),    # one row into the second split
         (B_SERVE, MAX_LEN, HQ, HKV, HD, MAX_LEN),          # the whole cache
+        (B_SERVE, MAX_LEN, HQ, HKV, HD, [100, MAX_LEN, 1, 300, 512, 513, 1000, MAX_LEN]),
         (3, 80, 4, 2, 16, [1, 37, 80]),
         (2, 333, 8, 2, 64, [5, 333]),
     ]
@@ -218,13 +222,24 @@ def check_kernels(dev, timer):
             k, v = randn(gen, (B, S, Hkv, D), dtype), randn(gen, (B, S, Hkv, D), dtype)
             kl_t = per_batch(kl)
             o = dec.decode_attention(q, k, v, kl_t)
-            check(f"decode_attention B{B} S{S} Hq{Hq} Hkv{Hkv} D{D}", o,
+            check(f"decode_attention B{B} S{S} Hq{Hq} Hkv{Hkv} D{D} kv_len {kl}", o,
                   ref.decode_attention(q, k, v, kl_t), dtype, errs["decode_attention"])
-            acc, m, l, kl32 = dec.decode_attention_splits(q, k, v, kl_t)
-            check(f"decode_combine B{B} S{S} Hq{Hq} D{D}",
-                  dec.combine_splits(acc, m, l, kl32, out_dtype=dtype),
-                  ref.combine_splits(acc, m, l, kl32, dec.BLK_S, dtype), dtype,
-                  errs["decode_combine"])
+        # kv_len 0: exactly 0, as the Pallas kernel (the plain version
+        # averages V there; ROADMAP.md section C).
+        o = dec.decode_attention(q, k, v, 0)
+        if not torch.equal(o, torch.zeros_like(o)):
+            fail("decode_attention at kv_len 0 is not exactly 0")
+        log("  decode_attention kv_len 0: exactly 0 (ok)")
+        # Back to back at two shapes, then the first again: each launch must
+        # find its arrival counters at 0, as the one before left them.
+        shapes = [((B_SERVE, HQ, HD), (B_SERVE, MAX_LEN, HKV, HD), DECODE_KV),
+                  ((2, 8, 64), (2, 600, 1, 64), [300, 600])]
+        inputs = [(randn(gen, qs, dtype), randn(gen, ks, dtype), randn(gen, ks, dtype),
+                   per_batch(kl)) for qs, ks, kl in shapes]
+        outs = [dec.decode_attention(*inputs[i]) for i in (0, 1, 0)]
+        for i, o in zip((0, 1, 0), outs):
+            check(f"decode_attention back to back, shape {i}", o,
+                  ref.decode_attention(*inputs[i]), dtype, errs["decode_attention"])
         # The decode step's int kv_len (a scalar argument) next to the same
         # lengths as a (B,) tensor: both match the plain version and each other.
         q = randn(gen, (B_SERVE, HQ, HD), dtype)
@@ -270,17 +285,6 @@ def check_kernels(dev, timer):
             qd[:, :, None], k[:, :DECODE_KV].transpose(1, 2), v[:, :DECODE_KV].transpose(1, 2),
             enable_gqa=True),
         bound=bound_ms(nbytes, 4 * HD * HQ * B_SERVE * DECODE_KV, bf)))
-    split_ms = timer.device_ms(lambda: dec.decode_attention_splits(qd, k, v, DECODE_KV),
-                               only="splits_kernel")
-    acc, m, l, kl32 = dec.decode_attention_splits(qd, k, v, DECODE_KV)
-    nvalid = dec.valid_splits(DECODE_KV, MAX_LEN)
-    nbytes = B_SERVE * HQ * nvalid * (HD + 2) * 4 + B_SERVE * HQ * HD * 2
-    out.append(dict(
-        name="decode_combine", route="cuda", source="src/repro_torch/csrc/decode_attention.cu",
-        replaces="src/repro/kernels/decode_attention.py:89",
-        fn=lambda: dec.combine_splits(acc, m, l, kl32, out_dtype=bf),
-        plain=lambda: ref.combine_splits(acc, m, l, kl32, dec.BLK_S, bf), library=None,
-        bound=bound_ms(nbytes, 3 * HD * B_SERVE * HQ * nvalid, torch.float32)))
     # K5: the prefill's norm1 / norm2 / final norm rows.
     x, s = randn(gen, (B_SERVE * PROMPT, D_MODEL), bf), randn(gen, (D_MODEL,), torch.float32)
     s_bf = s.to(bf)  # the fused library kernel wants the weight in x's type
@@ -290,12 +294,7 @@ def check_kernels(dev, timer):
         fn=lambda: rms.rmsnorm(x, s), plain=lambda: ref.rmsnorm(x, s),
         library=lambda: F.rms_norm(x, (D_MODEL,), weight=s_bf, eps=1e-6),
         bound=bound_ms(2 * x.numel() * 2 + D_MODEL * 4, 4 * x.numel(), torch.float32)))
-    out = [timed(e, timer, errs) for e in out]
-    k4 = next(e for e in out if e["name"] == "decode_attention")
-    log(f"  decode_attention's split kernel alone: device {split_ms:.4f} ms against the "
-        f"row's bound {k4['bound_ms']:.4f} ms ({k4['bound_ms'] / split_ms:.0%} of it); the "
-        f"row above times split + combine")
-    return out
+    return [timed(e, timer, errs) for e in out]
 
 
 def timed(e, timer, errs):
@@ -329,27 +328,47 @@ def check_backward(dev, timer):
 
     gen = torch.Generator(device=dev).manual_seed(4)
     errs = {"flash_attention_dq": [], "flash_attention_dkv": []}
-    cases = [  # B, T, Hq, Hkv, D, causal
-        (B_TRAIN, SEQ_TRAIN, HQ, HKV, HD, True),  # full-width training shape
-        (2, 333, 4, 2, 128, True),                # ragged across K3's 128 keys and 64 queries
-        (2, 200, 8, 2, 64, True),                 # GQA group 4, D 64
-        (1, SEQ_TRAIN + 40, HQ, HKV, HD, True),   # full heads, a ragged last key tile
-        (2, 77, 4, 2, 16, True),                  # GQA 2, ragged T
-        (1, 100, 4, 1, 64, True),                 # MQA, ragged T
-        (2, 64, 4, 2, 64, False),                 # non-causal
-        (1, 130, 2, 2, 128, False),               # MHA, non-causal, ragged T
+    cases = [  # B, T, Hq, Hkv, D, causal, every score near -120
+        (B_TRAIN, SEQ_TRAIN, HQ, HKV, HD, True, False),  # full-width training shape
+        (2, 333, 4, 2, 128, True, False),   # ragged across K3's 128 keys and 64 queries
+        (2, 200, 8, 2, 64, True, False),    # GQA group 4, D 64
+        (1, SEQ_TRAIN + 40, HQ, HKV, HD, True, False),  # full heads, a ragged last key tile
+        (2, 77, 4, 2, 16, True, False),     # GQA 2, ragged T
+        (1, 100, 4, 1, 64, True, False),    # MQA, ragged T
+        (2, 64, 4, 2, 64, False, False),    # non-causal
+        (1, 130, 2, 2, 128, False, False),  # MHA, non-causal, ragged T
+        (1, 129, 4, 2, 128, True, False),   # one query past K2's 128-query block
+        (2, 40, 4, 2, 64, True, False),     # under one of K2's 64-key tiles
+        (1, 200, 8, 1, 128, True, False),   # GQA group 8
+        # lse ~ -114: K2's zero-filled keys past Tk would give P = inf there;
+        # dQ alone is checked (finite, and against the plain version).
+        (1, 333, 4, 2, 128, False, True),
     ]
     for dtype in (torch.float32, torch.bfloat16):
         log(f"phase 3: backward kernels vs plain versions, {dtype}")
-        for B, T, Hq, Hkv, D, causal in cases:
+        for B, T, Hq, Hkv, D, causal, negative in cases:
             q, do = randn(gen, (B, T, Hq, D), dtype), randn(gen, (B, T, Hq, D), dtype)
             k, v = randn(gen, (B, T, Hkv, D), dtype), randn(gen, (B, T, Hkv, D), dtype)
+            if negative:
+                # q = -c u and k = u along u = e_0, with noise 0.1 in the other
+                # dims: every score is -c / sqrt(D) = -120 (+- 0.01). |k| ~ 1
+                # keeps dQ = dS K, and the fp32 order-of-sums error, at the
+                # scale of the other cases.
+                q, k = 0.1 * q, 0.1 * k
+                q[..., 0], k[..., 0] = -120 * math.sqrt(D), 1.0
             o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
             delta = ref.attention_delta(o, do).contiguous()
             tag = f"B{B} T{T} Hq{Hq} Hkv{Hkv} D{D} causal={causal}"
-            check(f"flash_attention_dq {tag}", fa.launch_dq(q, k, v, do, lse, delta, causal=causal),
+            if negative:
+                tag += f", lse {lse.min().item():.1f}..{lse.max().item():.1f}"
+            dq = fa.launch_dq(q, k, v, do, lse, delta, causal=causal)
+            if not torch.isfinite(dq).all():
+                fail(f"flash_attention_dq {tag}: non-finite dQ")
+            check(f"flash_attention_dq {tag}", dq,
                   ref.attention_dq(q, k, v, do, lse, delta, causal=causal), dtype,
                   errs["flash_attention_dq"])
+            if negative:  # a case for K2's masking; dK = dS^T Q would carry |q| = 1358
+                continue
             dk, dv = fa.launch_dkv(q, k, v, do, lse, delta, causal=causal)
             wk, wv = ref.attention_dkv(q, k, v, do, lse, delta, causal=causal)
             check(f"flash_attention_dkv dK {tag}", dk, wk, dtype, errs["flash_attention_dkv"])
@@ -504,8 +523,7 @@ def serve(dev, card):
         fail(f"generated tokens of shape {out['tokens'].shape}")
     layers, steps = cfg.n_layers, GEN - 1
     want = {"flash_attention": layers, "flash_attention_dq": 0, "flash_attention_dkv": 0,
-            "decode_attention": layers * steps, "decode_combine": layers * steps,
-            "rmsnorm": (4 * layers + 1) * GEN}
+            "decode_attention": layers * steps, "rmsnorm": (4 * layers + 1) * GEN}
     if counts != want:
         fail(f"launch counts {counts}, want {want}")
     t_pre, t_dec = out["t_prefill"], out["t_decode"]
@@ -521,8 +539,7 @@ KERNEL_GROUPS = (  # (group, substrings of the CUDA kernel name)
     ("flash_attention", ("fwd_kernel",)),
     ("flash_attention_dq", ("dq_kernel",)),
     ("flash_attention_dkv", ("dkv_kernel",)),
-    ("decode_attention", ("splits_kernel",)),
-    ("decode_combine", ("combine_kernel",)),
+    ("decode_attention", ("decode_kernel",)),
     ("rmsnorm", ("rmsnorm_kernel",)),
     ("matmul", ("gemm", "Gemm", "cutlass", "xmma", "nvjet", "sm90")),
     ("all_reduce", ("nccl", "AllReduce")),

@@ -1,29 +1,37 @@
 // Split-K flash-decoding for Hopper (sm_90a): one query token per sequence
-// against a (B, S, Hkv, D) KV cache, then a logsumexp merge of the splits.
+// against a (B, S, Hkv, D) KV cache, in one launch that also merges the
+// splits.
 //
 // Replaces src/repro/kernels/decode_attention.py::_decode_kernel (TPU Pallas,
-// pallas_call at decode_attention.py:62) and its combine_splits (L89, plain
-// jnp there, a second small kernel here). Same function: per split a partial
-// (acc, m, l) in fp32 with masked scores at NEG_INF = -1e30 and the safe_m
-// guard, then o = sum_s acc_s e^(m_s - M) / sum_s l_s e^(m_s - M).
+// pallas_call at decode_attention.py:62) and its combine_splits
+// (decode_attention.py:89, plain jnp after the Pallas call there). Same
+// function: per split a partial (acc, m, l) in fp32 with masked scores at
+// NEG_INF = -1e30 and the safe_m guard, then o = sum_s acc_s e^(m_s - M) /
+// sum_s l_s e^(m_s - M).
 //
 // What differs from the TPU kernel:
-// - One block per (split, kv head, batch) computes all `group` query heads
+// - One block per (kv head, split, batch) computes all `group` query heads
 //   that share its kv head (up to 8; a larger group is cut into blocks of
 //   8), so each cache row is read once. The TPU grid
 //   (decode_attention.py:64) had a query-head axis that its body ignored:
 //   each program recomputed every head.
 // - GQA is indexed, not repeated.
-// - Splits that lie wholly at or past kv_len are skipped: their blocks exit
-//   at once and the combine reads only the splits that hold a valid key.
+// - The merge is not a second pass: each block writes its partial to an
+//   fp32 workspace and counts itself in on a per-(batch, head block)
+//   counter; the block that arrives last merges the valid splits from L2,
+//   writes o and resets the counter to 0 for the next launch. So a decode
+//   step's attention is one launch per layer and allocates only o.
+// - Splits that lie wholly at or past kv_len are never read: their blocks
+//   only count themselves in, and the merge reads the splits that hold a
+//   valid key. kv_len = 0 gives o = 0, as the Pallas kernel's partials do.
 // - Any cache length: the ragged last split is masked, where the TPU wrapper
 //   asserted S % blk_s == 0.
 //
 // What bounds it: one token does 4 D operations per cached key and head, far
 // below the card's ops-per-byte line, so it is bound by the bytes of K and V
 // up to kv_len, and it reaches the HBM rate only with enough bytes in flight
-// (by Little's law ~2 MB across the card at ~600 ns). So the split kernel is
-// a byte stream:
+// (by Little's law ~2 MB across the card at ~600 ns). So the kernel is a
+// byte stream:
 // - each warp streams its own chunks of the split through a private ring
 //   of kStages shared-memory stages with 16-byte cp.async, so each lane has
 //   up to kStages x 8 x 16 bytes of K and V requested before it does any
@@ -36,8 +44,9 @@
 //   row; an online softmax per head (running m, l in the exp2 domain, q
 //   pre-scaled by scale log2(e)) lets P V follow each chunk's scores with no
 //   block-wide barrier; the warps' partial states merge once at the end;
-// - splits are long (kernels/decode_attention.py's BLK_S), so few partials
-//   go to the combine.
+// - splits are long (kernels/decode_attention.py's BLK_S), so the last
+//   block merges few partials (5 per head at the serve path's 1056-slot
+//   cache), a tail of a few hundred bytes per head read from L2.
 // One int kv_len for the whole batch comes as a scalar argument (null
 // pointer), so the caller fills no (B,) tensor for it.
 
@@ -50,7 +59,7 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kStages = 2;        // chunks in flight per warp (tools/k4_variants.py)
@@ -113,32 +122,23 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// grid (Hkv x head blocks, nsplit, B), kThreads threads: the blocks of one
-// split's KV heads are launched together, so they read neighbouring bytes
-// of the same cache rows at about the same time. A block takes GB
-// query heads of one KV head's group (heads past the group are computed
-// with q = 0 and not written), the rows [s0, s0 + n) of its split, and
-// writes one partial (acc, m, l) per head: m the split's max score, l and
-// acc its sums of e^(s - m) and e^(s - m) v.
+// The partial (acc, m, l) of GB query heads of one KV head's group (heads
+// past the group are computed with q = 0 and not written) over the n valid
+// rows [s0, s0 + n) of split si, into the workspace: m the split's max
+// score and l and acc its sums of 2^(s - m) and 2^(s - m) v, in the exp2
+// domain. The workspace holds acc (B, Hq, nsplit, D), then m and l
+// (B, Hq, nsplit), all fp32.
 template <typename T, int D, int GB>
-__global__ void __launch_bounds__(kThreads)
-splits_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              const int* __restrict__ kv_len, int klen_s, float* __restrict__ acc,
-              float* __restrict__ m_out, float* __restrict__ l_out, int S, int Hq, int Hkv,
-              int nsplit, int blk_s, float scale) {
+__device__ __forceinline__ void split_partial(const T* __restrict__ q, const T* __restrict__ k,
+                                              const T* __restrict__ v, float* __restrict__ ws,
+                                              int B, int b, int si, int hk, int g0, int G,
+                                              int s0, int n, int S, int Hq, int Hkv, int nsplit,
+                                              float scale) {
   constexpr int VEC = Vec<T>::N;                    // elements per 16-byte vector
   constexpr int LPR = D / VEC;                      // lanes per row
   constexpr int RPI = 32 / LPR;                     // rows per warp instruction
   constexpr int CR = 4 * RPI;                       // rows per chunk
   static_assert(LPR * 16 * CR == 4 * 32 * 16, "a chunk is 4 vectors per lane");
-  const int si = blockIdx.y, b = blockIdx.z;
-  const int G = Hq / Hkv, nhb = (G + GB - 1) / GB;
-  const int hk = blockIdx.x / nhb, g0 = (blockIdx.x % nhb) * GB;
-  const int klen = min(kv_len ? kv_len[b] : klen_s, S);
-  const int s0 = si * blk_s;
-  if (s0 >= klen) return;                 // no valid key in this split
-  const int n = min(blk_s, klen - s0);    // valid rows of this split
-
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int sub = lane / LPR, slice = lane % LPR;  // row within an instruction, vector of the row
@@ -291,73 +291,157 @@ splits_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
       lsum = fmaf(pl[w * GB + g], wt, lsum);
       asum = fmaf(pa[(w * GB + g) * D + d], wt, asum);
     }
+    const size_t parts = (size_t)B * Hq * nsplit;
     const size_t o = ((size_t)b * Hq + hk * G + g0 + g) * nsplit + si;
-    acc[o * D + d] = asum;
+    ws[o * D + d] = asum;
     if (d == 0) {
-      m_out[o] = mx * kLn2;  // back to the natural log of the TPU kernel's m
-      l_out[o] = lsum;
+      ws[parts * D + o] = mx;  // m
+      ws[parts * (D + 1) + o] = lsum;  // l
     }
   }
 }
 
-// grid (Hq, B); one thread per head-dim element (block of >= 32 threads).
-template <typename T>
-__global__ void combine_kernel(const float* __restrict__ acc, const float* __restrict__ m,
-                               const float* __restrict__ l, const int* __restrict__ kv_len,
-                               int klen_s, T* __restrict__ o, int S, int Hq, int D, int nsplit,
-                               int blk_s) {
-  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-  const int klen = min(kv_len ? kv_len[b] : klen_s, S);
-  const int nvalid = min(nsplit, (klen + blk_s - 1) / blk_s);
-  const size_t base = ((size_t)b * Hq + h) * nsplit;
-  float mg = kNegInf;
-  for (int s = 0; s < nvalid; ++s) mg = fmaxf(mg, m[base + s]);
-  float lg = 0.f, a = 0.f;
-  for (int s = 0; s < nvalid; ++s) {
-    const float w = expf(m[base + s] - mg);
-    lg = fmaf(l[base + s], w, lg);
-    if (d < D) a = fmaf(acc[(base + s) * D + d], w, a);
+// Counts the block in on the counter of its (batch, head block); the block
+// that arrives last merges the valid splits of its heads and writes o in T,
+// then resets the counter to 0 for the next launch. Every block of the
+// grid counts in, a split past kv_len too, so the last one is the grid's
+// nsplit-th whatever kv_len each row has. One thread's acq_rel atomic
+// publishes the block's partial (written before the barrier) and, in the
+// last block, makes the others' partials visible; they are read through L2.
+// The merge is the block's tail on the critical path, so each thread
+// issues the loads of C splits of its elements at once and merges them
+// online (one L2 round trip per C splits).
+template <typename T, int D, int GB>
+__device__ __forceinline__ void count_in_and_merge(const float* __restrict__ ws,
+                                                   int* __restrict__ counter, T* __restrict__ o,
+                                                   int B, int b, int hk, int g0, int G, int klen,
+                                                   int Hq, int nsplit, int blk_s) {
+  constexpr int E = (GB * D + kThreads - 1) / kThreads;  // output elements per thread
+  constexpr int C = E <= 2 ? 8 : 4;                       // splits per round of loads
+  // The flag lives in the first word of the ring, idle by now: a static
+  // __shared__ int would shift the dynamic shared memory, and so every
+  // cp.async destination, 16 bytes off its 128-byte alignment, which costs
+  // ~15% of the kernel (tools/k4_variants.py).
+  extern __shared__ __align__(16) unsigned char smem[];
+  int& last = *reinterpret_cast<int*>(smem);
+  __syncthreads();  // the block's partial is written, the ring no longer read
+  if (threadIdx.x == 0) {
+    int old;
+    asm volatile("atom.add.acq_rel.gpu.s32 %0, [%1], 1;\n" : "=r"(old) : "l"(counter) : "memory");
+    last = old == nsplit - 1;
+    if (last) *counter = 0;
   }
-  if (d < D) o[((size_t)b * Hq + h) * D + d] = from_f<T>(a / fmaxf(lg, 1e-30f));
+  __syncthreads();
+  if (!last) return;
+  const size_t parts = (size_t)B * Hq * nsplit;
+  const float* acc = ws;
+  const float* m = ws + parts * D;
+  const float* l = m + parts;
+  const int nvalid = min(nsplit, (klen + blk_s - 1) / blk_s);
+  float mg[E], lg[E], a[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    mg[e] = kNegInf;
+    lg[e] = a[e] = 0.f;
+  }
+  for (int s0 = 0; s0 < nvalid; s0 += C) {
+    float ms[E][C], ls[E][C], as[E][C];
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int i = threadIdx.x + e * kThreads, g = i / D, d = i % D;
+      const size_t base = ((size_t)b * Hq + hk * G + g0 + g) * nsplit;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const bool ok = i < GB * D && g0 + g < G && s0 + c < nvalid;
+        ms[e][c] = ok ? __ldcg(m + base + s0 + c) : kNegInf;
+        ls[e][c] = ok ? __ldcg(l + base + s0 + c) : 0.f;
+        as[e][c] = ok ? __ldcg(acc + (base + s0 + c) * D + d) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      float mx = mg[e];
+#pragma unroll
+      for (int c = 0; c < C; ++c) mx = fmaxf(mx, ms[e][c]);
+      const float w0 = ex2(mg[e] - mx);  // 1 while nothing valid was seen
+      lg[e] *= w0;
+      a[e] *= w0;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const float w = ex2(ms[e][c] - mx);
+        lg[e] = fmaf(ls[e][c], w, lg[e]);
+        a[e] = fmaf(as[e][c], w, a[e]);
+      }
+      mg[e] = mx;
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int i = threadIdx.x + e * kThreads, g = i / D, d = i % D;
+    if (i < GB * D && g0 + g < G)  // kv_len = 0: o = 0
+      o[((size_t)b * Hq + hk * G + g0 + g) * D + d] = from_f<T>(a[e] / fmaxf(lg[e], 1e-30f));
+  }
+}
+
+// grid (Hkv x head blocks, nsplit, B), kThreads threads: the blocks of one
+// split's KV heads are launched together, so they read neighbouring bytes
+// of the same cache rows at about the same time. A block takes GB query
+// heads of one KV head's group and one split: its partial, then its count.
+template <typename T, int D, int GB>
+__global__ void __launch_bounds__(kThreads)
+decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+              const int* __restrict__ kv_len, int klen_s, float* __restrict__ ws,
+              int* __restrict__ counters, T* __restrict__ o, int B, int S, int Hq, int Hkv,
+              int nsplit, int blk_s, float scale) {
+  const int hb = blockIdx.x, si = blockIdx.y, b = blockIdx.z;
+  const int G = Hq / Hkv, nhb = (G + GB - 1) / GB;
+  const int hk = hb / nhb, g0 = (hb % nhb) * GB;
+  const int klen = min(kv_len ? kv_len[b] : klen_s, S);
+  const int s0 = si * blk_s;
+  if (s0 < klen)  // else no valid key in this split
+    split_partial<T, D, GB>(q, k, v, ws, B, b, si, hk, g0, G, s0, min(blk_s, klen - s0), S, Hq,
+                            Hkv, nsplit, scale);
+  count_in_and_merge<T, D, GB>(ws, counters + (size_t)b * Hkv * nhb + hb, o, B, b, hk, g0, G,
+                               klen, Hq, nsplit, blk_s);
 }
 
 template <int D, int GB>
-constexpr size_t splits_smem_bytes() {
+constexpr size_t smem_bytes() {
   return (size_t)kWarps * kStages * 2 * kChunkBytes + sizeof(float) * kWarps * GB * (D + 2);
 }
 
 template <typename T, int D, int GB>
-int launch_splits(const void* q, const void* k, const void* v, const void* kv_len, int klen_s,
-                  void* acc, void* m, void* l, int B, int S, int Hq, int Hkv, int nsplit,
-                  int blk_s, float scale, cudaStream_t stream) {
-  constexpr size_t smem = splits_smem_bytes<D, GB>();
+int launch(const void* q, const void* k, const void* v, const void* kv_len, int klen_s, void* ws,
+           void* counters, void* o, int B, int S, int Hq, int Hkv, int nsplit, int blk_s,
+           float scale, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<D, GB>();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      splits_kernel<T, D, GB>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      decode_kernel<T, D, GB>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
   const int G = Hq / Hkv;
   dim3 grid(Hkv * ((G + GB - 1) / GB), nsplit, B);
-  splits_kernel<T, D, GB><<<grid, kThreads, smem, stream>>>(
+  decode_kernel<T, D, GB><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(kv_len), klen_s, static_cast<float*>(acc), static_cast<float*>(m),
-      static_cast<float*>(l), S, Hq, Hkv, nsplit, blk_s, scale);
+      static_cast<const int*>(kv_len), klen_s, static_cast<float*>(ws),
+      static_cast<int*>(counters), static_cast<T*>(o), B, S, Hq, Hkv, nsplit, blk_s, scale);
   return (int)cudaGetLastError();
 }
 
-using SplitsFn = int (*)(const void*, const void*, const void*, const void*, int, void*, void*,
+using LaunchFn = int (*)(const void*, const void*, const void*, const void*, int, void*, void*,
                          void*, int, int, int, int, int, int, float, cudaStream_t);
 
 // Heads per block: the group rounded up to 1, 2, 4 or 8; larger groups are
 // cut into blocks of 8 heads (each reads the cache rows again).
 template <typename T, int D>
-SplitsFn pick_heads(int G) {
-  if (G <= 1) return launch_splits<T, D, 1>;
-  if (G <= 2) return launch_splits<T, D, 2>;
-  if (G <= 4) return launch_splits<T, D, 4>;
-  return launch_splits<T, D, 8>;
+LaunchFn pick_heads(int G) {
+  if (G <= 1) return launch<T, D, 1>;
+  if (G <= 2) return launch<T, D, 2>;
+  if (G <= 4) return launch<T, D, 4>;
+  return launch<T, D, 8>;
 }
 
 template <typename T>
-SplitsFn pick_splits(int D, int G) {
+LaunchFn pick(int D, int G) {
   switch (D) {
     case 16: return pick_heads<T, 16>(G);
     case 64: return pick_heads<T, 64>(G);
@@ -368,45 +452,22 @@ SplitsFn pick_splits(int D, int G) {
 
 }  // namespace
 
-// q (B,Hq,D); k and v (B,S,Hkv,D), contiguous, one type (dtype 0: float32,
-// 1: bfloat16); kv_len (B,) int32, or null for the scalar klen_s; acc
-// (B,Hq,nsplit,D), m and l (B,Hq,nsplit) float32. Splits at or past kv_len
-// are left unwritten. Returns a cudaError_t, or -1 for an unsupported head
-// dim or type.
-extern "C" int decode_attention_splits(const void* q, const void* k, const void* v,
-                                       const void* kv_len, int klen_s, void* acc, void* m,
-                                       void* l, int B, int S, int Hq, int Hkv, int D,
-                                       int nsplit, int blk_s, float scale, int dtype,
-                                       void* stream) {
+// q (B,Hq,D) -> o (B,Hq,D); k and v (B,S,Hkv,D); all contiguous, one type
+// (dtype 0: float32, 1: bfloat16); kv_len (B,) int32, or null for the scalar
+// klen_s. ws: float32 scratch of B * Hq * nsplit * (D + 2) values; counters:
+// int32, one per (batch, head block) (B * Hq suffice), all 0 before the
+// call and left 0 after it, so one pair serves every call on one stream,
+// never two streams at once. One launch; returns a cudaError_t, or -1 for
+// an unsupported head dim or type.
+extern "C" int decode_attention(const void* q, const void* k, const void* v, const void* kv_len,
+                                int klen_s, void* ws, void* counters, void* o, int B, int S,
+                                int Hq, int Hkv, int D, int nsplit, int blk_s, float scale,
+                                int dtype, void* stream) {
   const int G = Hq / Hkv;
-  const SplitsFn f = dtype == 0   ? pick_splits<float>(D, G)
-                     : dtype == 1 ? pick_splits<__nv_bfloat16>(D, G)
+  const LaunchFn f = dtype == 0   ? pick<float>(D, G)
+                     : dtype == 1 ? pick<__nv_bfloat16>(D, G)
                                   : nullptr;
   if (f == nullptr) return -1;
-  return f(q, k, v, kv_len, klen_s, acc, m, l, B, S, Hq, Hkv, nsplit, blk_s, scale,
+  return f(q, k, v, kv_len, klen_s, ws, counters, o, B, S, Hq, Hkv, nsplit, blk_s, scale,
            static_cast<cudaStream_t>(stream));
-}
-
-// Merges the valid splits into o (B,Hq,D) of the given type; kv_len as for
-// decode_attention_splits.
-extern "C" int decode_attention_combine(const void* acc, const void* m, const void* l,
-                                        const void* kv_len, int klen_s, void* o, int B, int S,
-                                        int Hq, int D, int nsplit, int blk_s, int dtype,
-                                        void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid(Hq, B);
-  const int threads = ((D + 31) / 32) * 32;
-  const float* a = static_cast<const float*>(acc);
-  const float* mm = static_cast<const float*>(m);
-  const float* ll = static_cast<const float*>(l);
-  const int* kl = static_cast<const int*>(kv_len);
-  if (dtype == 0)
-    combine_kernel<float><<<grid, threads, 0, s>>>(a, mm, ll, kl, klen_s, static_cast<float*>(o),
-                                                   S, Hq, D, nsplit, blk_s);
-  else if (dtype == 1)
-    combine_kernel<__nv_bfloat16><<<grid, threads, 0, s>>>(
-        a, mm, ll, kl, klen_s, static_cast<__nv_bfloat16*>(o), S, Hq, D, nsplit, blk_s);
-  else
-    return -1;
-  return (int)cudaGetLastError();
 }

@@ -437,29 +437,16 @@ __device__ __forceinline__ void bar_arrive(int id) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(kConsumers * 128) : "memory");
 }
 
-// V read MN-major: the 64-column blocks of D lie kWgBK * 128 bytes apart
-// (leading offset), groups of 8 keys 1024 bytes apart (stride offset).
-constexpr uint32_t kVLbo = kWgBK * 128, kVSbo = 1024;
-
-// S (64 x kWgBK) = Q K^T for one warpgroup: D / 16 k-steps of 32 bytes
-// inside each 128-byte column block of Q (its 64 rows) and K.
+// S (64 x kWgBK) = Q K^T for one warpgroup (its 64 rows of the Q tile) and
+// O += P V over kWgBK / 16 k-steps of 16 keys: hopper.cuh's product loops.
 template <int D>
 __device__ __forceinline__ void wgmma_qk(float (&sc)[kWgBK / 2], uint32_t sQw, uint32_t sK) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t qa = sQw + (kk / 4) * (kWgBQ * 128) + (kk % 4) * 32;
-    const uint32_t ka = sK + (kk / 4) * (kWgBK * 128) + (kk % 4) * 32;
-    wgmma_ss_n128(sc, sw128_desc(qa, 16, 1024), sw128_desc(ka, 16, 1024), kk);
-  }
+  wgmma_abt<D, kWgBK, kWgBQ, kWgBK>(sc, sQw, sK);
 }
-
-// O += P V over kWgBK / 16 k-steps of 16 keys (2048 bytes of V each).
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&acc)[D / 2], const uint32_t (&pa)[kWgBK / 16][4],
                                          uint32_t sV) {
-#pragma unroll
-  for (int kk = 0; kk < kWgBK / 16; ++kk)
-    wgmma_rs<D>(acc, pa[kk], sw128_desc(sV + kk * 2048, kVLbo, kVSbo));
+  wgmma_ab<D, kWgBK>(acc, pa, sV);
 }
 
 // One tile of the online softmax, in place: sc[i] holds the raw score of

@@ -26,11 +26,11 @@
 //
 // What bounds it: at the training shape (T = 1024, D = 128) both kernels
 // are far above the card's ops-per-byte line, so operations bound them,
-// i.e. the tensor cores. The versions, chosen by input type and D:
+// i.e. the tensor cores. Only wgmma reaches Hopper's tensor-core rate, and
+// only if the tiles arrive while the previous ones are multiplied. The
+// versions, chosen by input type and D:
 // - bfloat16 dK/dV at D = 64 and 128 (the training path): dkv_kernel_wgmma,
-//   the FlashAttention-3 backward without its dQ. Only wgmma reaches
-//   Hopper's tensor-core rate, and only if the tiles arrive while the
-//   previous ones are multiplied, so:
+//   the FlashAttention-3 backward without its dQ:
 //   * tiles: 128 keys per block in two consumer warpgroups of 64; K and V
 //     come in once by TMA, then (Q, dO) tiles of 64 queries stream through
 //     a 3-stage mbarrier ring with their lse and delta, over every (group
@@ -48,19 +48,40 @@
 //   * scheduling: the key tile with the most queries below it starts first.
 //   * epilogue: dK and dV staged over K and V in shared memory, TMA stores
 //     that clip rows past Tk.
-// - bfloat16 dQ, and dK/dV at D = 16 (the reduced configs): dq_kernel_mma /
-//   dkv_kernel_mma, four warps of 16 rows (queries in dQ, keys in dK/dV)
-//   multiplying with mma.sync m16n8k16 (bf16 in, fp32 accumulate): S and dP
-//   come from fragments of shared-memory tiles; P and dS are rounded to bf16
-//   and reused from registers as the A operand of the next product; K, Q and
-//   dO reach that product as B operands through ldmatrix.trans. Tile rows
-//   are padded by 16 bytes so the fragment loads hit distinct banks.
+// - bfloat16 dQ at D = 64 and 128 (the training path): dq_kernel_wgmma. Its
+//   operands are K1's: S = Q K^T is K1's score product, dP = dO V^T the same
+//   product with dO and V in Q's and K's places, and dQ += dS K is K1's
+//   O += P V with K in V's place (read MN-major through the same swizzled
+//   tile); hopper.cuh's product loops serve both kernels. There is no online
+//   softmax and no rescaling, since lse comes from the forward. So:
+//   * tiles: 128 queries per block in two consumer warpgroups of 64; Q and
+//     dO come in once by TMA, then (K, V) tiles of 64 keys stream through a
+//     3-stage mbarrier ring from a producer warp (setmaxnreg 24 / 240).
+//     64-key tiles leave a consumer thread registers for dQ (64 fp32 at
+//     D = 128), S and dP (32 each) and dS in bf16 (16), so:
+//   * overlap: tile j's S and dP are issued together with tile j-1's
+//     dQ += dS K, and tile j's scores are worked while that product runs.
+//   * softmax work: exp2 domain, one FFMA and one ex2 per score, lse and
+//     delta of the thread's two rows held in registers; only a tile that
+//     crosses the warpgroup's diagonal or Tk tests positions.
+//   * scheduling: the query tile with the most keys before it starts first;
+//     the heads of one KV head are neighbours in the grid and share K and V
+//     through L2 (GQA is indexed, no repeat).
+//   * epilogue: dQ staged over the warpgroup's rows of the Q tile, TMA
+//     stores that clip rows past Tq.
+// - bfloat16 at D = 16 (the reduced configs): dq_kernel_mma / dkv_kernel_mma,
+//   four warps of 16 rows (queries in dQ, keys in dK/dV) multiplying with
+//   mma.sync m16n8k16 (bf16 in, fp32 accumulate): S and dP come from
+//   fragments of shared-memory tiles; P and dS are rounded to bf16 and
+//   reused from registers as the A operand of the next product; K, Q and dO
+//   reach that product as B operands through ldmatrix.trans. Tile rows are
+//   padded by 16 bytes so the fragment loads hit distinct banks. A 32-byte
+//   row is too narrow for the 128-byte swizzled tiles above.
 // - float32 (parity checks): dq_kernel / dkv_kernel, scalar fp32 FMAs on
 //   the CUDA cores, tiles converted to fp32 in shared memory (row stride
 //   D + 1, so column walks hit distinct banks), 128 threads as 8 row groups
 //   x 16 column lanes; the result differs from an fp32 reference only in
 //   the order of sums.
-// Not yet done: dQ on wgmma + TMA (the next kernel of the redesign).
 
 #include <math.h>
 #include <stddef.h>
@@ -739,18 +760,8 @@ dkv_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       if (!(causal && q0 + kDkvBQ - 1 < kmin)) {
         const uint32_t sq = sQ0 + s * 2 * L::tile_bytes, sdo = sq + L::tile_bytes;
         wg_fence();
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          const uint32_t col = (kk / 4) * (kDkvBK * 128) + (kk % 4) * 32;
-          const uint32_t qcol = (kk / 4) * (kDkvBQ * 128) + (kk % 4) * 32;
-          wgmma_ss_n64(sc, sw128_desc(sKw + col, 16, 1024), sw128_desc(sq + qcol, 16, 1024), kk);
-        }
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          const uint32_t col = (kk / 4) * (kDkvBK * 128) + (kk % 4) * 32;
-          const uint32_t qcol = (kk / 4) * (kDkvBQ * 128) + (kk % 4) * 32;
-          wgmma_ss_n64(dp, sw128_desc(sVw + col, 16, 1024), sw128_desc(sdo + qcol, 16, 1024), kk);
-        }
+        wgmma_abt<D, kDkvBQ, kDkvBK, kDkvBQ>(sc, sKw, sq);
+        wgmma_abt<D, kDkvBQ, kDkvBK, kDkvBQ>(dp, sVw, sdo);
         wg_commit();
         wg_wait<0>();
         fence_regs(sc);
@@ -818,6 +829,236 @@ dkv_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         tma_store_4d(&tm_dk, sKw + c * (kDkvBK * 128), c * 64, hk, kmin, b);
         tma_store_4d(&tm_dv, sVw + c * (kDkvBK * 128), c * 64, hk, kmin, b);
       }
+      tma_store_commit_and_wait();
+    }
+  }
+}
+
+// --------------------------------------------- dQ: bfloat16, D = 64 / 128
+
+constexpr int kDqBQ = 128;          // queries per block: 64 per consumer warpgroup
+constexpr int kDqBK = 64;           // keys per streamed (K, V) tile
+constexpr int kDqStages = 3;        // depth of the (K, V) ring
+constexpr int kDqThreads = 3 * 128; // two consumer warpgroups + one producer warpgroup
+
+// Shared memory, in bytes from a 1024-byte aligned base: Q and dO of the
+// block (loaded once), then per stage a K and a V tile, each stored as D / 64
+// column blocks of (rows x 64) bf16, 128-byte swizzled, one TMA box each.
+template <int D>
+struct DqSmem {
+  static constexpr uint32_t q_bytes = kDqBQ * D * 2;   // Q or dO
+  static constexpr uint32_t kv_bytes = kDqBK * D * 2;  // K or V of one stage
+  static constexpr uint32_t q_off = 0;
+  static constexpr uint32_t do_off = q_bytes;
+  static constexpr uint32_t k_off = 2 * q_bytes;  // stage s: K at + 2 s kv_bytes, V after it
+  static constexpr uint32_t bar_off = k_off + kDqStages * 2 * kv_bytes;
+  // q_full, then full and empty per stage
+  static constexpr size_t total = bar_off + 8 * (1 + 2 * kDqStages) + 1024;
+};
+
+// One block per (128-query tile, query head, batch), the longest causal
+// tiles first: the linear block index takes the query tile slowest, in
+// reverse, so the last query tile of every (head, batch) starts in the first
+// wave; neighbouring blocks are the heads of one KV head, which read the
+// same K and V tiles (L2 serves the group).
+//
+// The producer warpgroup keeps setmaxnreg 24: one thread loads Q and dO
+// once and streams the K and V tiles through the ring. A stage is full
+// when its TMA bytes have landed, and empty after one arrival per consumer
+// warp.
+//
+// Each consumer warpgroup owns 64 queries; per key tile j:
+//   S = Q K^T and dP = dO V^T      (wgmma, Q / dO and K / V from shared
+//                                   memory, both K-major)
+//   P = 2^(S scale log2(e) - lse log2(e)), 0 where masked
+//   dS = P (dP scale - delta scale)
+//   dQ += dS K                     (wgmma, dS rounded to bf16 in registers
+//                                   as the A operand, K read MN-major)
+// Tile j's S and dP are issued together with tile j-1's dQ product, so the
+// scores of tile j are worked while that product runs. Only a tile that
+// crosses the warpgroup's diagonal (causal) or Tk tests positions: TMA
+// fills keys past Tk with 0, and a row whose scores all lie far below 0
+// (lse ~ -120) would take P = e^120 = inf there, and inf * 0 = NaN in dQ, so
+// those keys are masked and not left to the zeros. Rows past Tq compute
+// with Q = dO = 0 and lse = delta = 0 (finite) and are never stored. A
+// warpgroup stops after its last needed key tile and then only releases
+// the stages the other one still uses.
+template <int D>
+__global__ void __launch_bounds__(kDqThreads, 1)
+dq_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                const __grid_constant__ CUtensorMap tm_dq, const float* __restrict__ lse,
+                const float* __restrict__ delta, int B, int Tq, int Tk, int Hq, int Hkv,
+                int causal, float scale) {
+  using L = DqSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base =
+      (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023u) & ~1023u;
+  const uint32_t sQ = base + L::q_off, sDO = base + L::do_off, sK0 = base + L::k_off;
+  const uint32_t q_full = base + L::bar_off;
+  const uint32_t full = q_full + 8, empty = full + 8 * kDqStages;  // + 8 * stage
+
+  const int nhb = Hq * B, ntq = (Tq + kDqBQ - 1) / kDqBQ;
+  const int qt = ntq - 1 - blockIdx.x / nhb, h = blockIdx.x % nhb % Hq,
+            b = blockIdx.x % nhb / Hq;
+  const int q0 = qt * kDqBQ, hk = h / (Hq / Hkv);
+  // Keys the block needs: up to its last query when causal.
+  const int kend = causal ? min(Tk, min(q0 + kDqBQ, Tq)) : Tk;
+  const int ntiles = kend > 0 ? (kend + kDqBK - 1) / kDqBK : 0;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (warp == 8 && lane == 0) {
+      mbar_expect_tx(q_full, 2 * L::q_bytes);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load_4d(sQ + c * kDqBQ * 128, &tm_q, q_full, c * 64, h, q0, b);
+        tma_load_4d(sDO + c * kDqBQ * 128, &tm_do, q_full, c * 64, h, q0, b);
+      }
+      for (int it = 0; it < ntiles; ++it) {
+        const int s = it % kDqStages;
+        const uint32_t sk = sK0 + s * 2 * L::kv_bytes, sv = sk + L::kv_bytes;
+        mbar_wait(empty + 8 * s, ((it / kDqStages) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, 2 * L::kv_bytes);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_4d(sk + c * kDqBK * 128, &tm_k, full + 8 * s, c * 64, hk, it * kDqBK, b);
+          tma_load_4d(sv + c * kDqBK * 128, &tm_v, full + 8 * s, c * 64, hk, it * kDqBK, b);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int wg = warp / 4, g = lane / 4, t4 = lane % 4;
+    const int wrow = (warp % 4) * 16 + g;  // this thread's rows: wrow, wrow + 8 of the 64
+    const int qlo = q0 + wg * 64, qrow = qlo + wrow;
+    const uint32_t sQw = sQ + wg * 64 * 128, sDOw = sDO + wg * 64 * 128;
+    const float sl2 = scale * kLog2e;
+    // -lse log2(e) and -delta scale of this thread's two rows (0 past Tq).
+    float nl[2], nd[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = qrow + 8 * r;
+      const size_t row = ((size_t)b * Hq + h) * Tq + t;
+      nl[r] = t < Tq ? -lse[row] * kLog2e : 0.f;
+      nd[r] = t < Tq ? -delta[row] * scale : 0.f;
+    }
+    // Key tiles this warpgroup needs; none when all its rows lie past Tq.
+    const int kend_wg = qlo >= Tq ? 0 : causal ? min(Tk, min(qlo + 64, Tq)) : Tk;
+    const int n = (kend_wg + kDqBK - 1) / kDqBK;
+    float dq[D / 2], sc[32], dp[32];
+    uint32_t da[4][4];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+    // sc[i] and dp[i] belong to row qrow + 8 ((i >> 1) & 1) and key
+    // k0 + 8 (i / 4) + 2 t4 + (i & 1). Leaves dS in dp.
+    auto scores = [&](int it) {
+      const int k0 = it * kDqBK;
+      if (k0 + kDqBK > Tk || (causal && k0 + kDqBK - 1 > qlo)) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int r = (i >> 1) & 1, kpos = k0 + 8 * (i / 4) + 2 * t4 + (i & 1);
+          float p = ex2(fmaf(sc[i], sl2, nl[r]));
+          if (kpos >= Tk || (causal && kpos > qrow + 8 * r)) p = 0.f;
+          dp[i] = p * fmaf(dp[i], scale, nd[r]);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int r = (i >> 1) & 1;
+          dp[i] = ex2(fmaf(sc[i], sl2, nl[r])) * fmaf(dp[i], scale, nd[r]);
+        }
+      }
+    };
+    auto stage_k = [&](int it) { return sK0 + (it % kDqStages) * 2 * L::kv_bytes; };
+
+    mbar_wait(q_full, 0);
+    if (n > 0) {
+      mbar_wait(full, 0);
+      wg_fence();
+      wgmma_abt<D, kDqBK, kDqBQ, kDqBK>(sc, sQw, stage_k(0));
+      wgmma_abt<D, kDqBK, kDqBQ, kDqBK>(dp, sDOw, stage_k(0) + L::kv_bytes);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      scores(0);
+      pack_a(da, dp);
+    }
+    for (int it = 1; it < n; ++it) {
+      const int s = it % kDqStages;
+      mbar_wait(full + 8 * s, (it / kDqStages) & 1);
+      fence_regs(dq);
+      fence_regs(da);
+      wg_fence();
+      wgmma_abt<D, kDqBK, kDqBQ, kDqBK>(sc, sQw, stage_k(it));
+      wgmma_abt<D, kDqBK, kDqBQ, kDqBK>(dp, sDOw, stage_k(it) + L::kv_bytes);
+      wg_commit();
+      wgmma_ab<D, kDqBK>(dq, da, stage_k(it - 1));
+      wg_commit();
+      wg_wait<1>();  // S and dP are done; dQ += dS K of tile it-1 may still run
+      fence_regs(sc);
+      fence_regs(dp);
+      scores(it);
+      wg_wait<0>();
+      fence_regs(dq);
+      fence_regs(da);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * ((it - 1) % kDqStages));  // tile it-1 is done
+      pack_a(da, dp);
+    }
+    if (n > 0) {
+      fence_regs(dq);
+      fence_regs(da);
+      wg_fence();
+      wgmma_ab<D, kDqBK>(dq, da, stage_k(n - 1));
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(dq);
+      fence_regs(da);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * ((n - 1) % kDqStages));
+    }
+    // The tiles only the other warpgroup needs: wait for each (so no
+    // arrival runs ahead into the stage's next phase) and release it.
+    for (int it = n; it < ntiles; ++it) {
+      const int s = it % kDqStages;
+      mbar_wait(full + 8 * s, (it / kDqStages) & 1);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+    }
+
+    // Epilogue: dQ in bf16 over this warpgroup's rows of the Q tile (free
+    // once its last S is done), swizzled as TMA reads them, then one TMA
+    // store per column block; rows past Tq are not written.
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = wrow + 8 * r;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const uint32_t dst = sQw + (j / 8) * (kDqBQ * 128) + sw128_offset(row, j % 8) + 4 * t4;
+        const uint32_t val = pack_bf16(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(dst), "r"(val) : "memory");
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    bar_sync_wg(1 + wg);
+    if (warp % 4 == 0 && lane == 0 && qlo < Tq) {
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c)
+        tma_store_4d(&tm_dq, sQw + c * (kDqBQ * 128), c * 64, h, qlo, b);
       tma_store_commit_and_wait();
     }
   }
@@ -917,14 +1158,36 @@ int launch_dkv_wgmma(const void* q, const void* k, const void* v, const void* do
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                    const void* lse, const void* delta, void* dq, int B, int Tq, int Tk, int Hq,
+                    int Hkv, int causal, float scale, cudaStream_t stream) {
+  constexpr size_t smem = DqSmem<D>::total;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      dq_kernel_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  CUtensorMap tq, tk, tv, tdo, tdq;
+  int rc = make_map(&tq, q, B, Tq, Hq, D, kDqBQ);
+  if (rc == 0) rc = make_map(&tdo, dout, B, Tq, Hq, D, kDqBQ);
+  if (rc == 0) rc = make_map(&tk, k, B, Tk, Hkv, D, kDqBK);
+  if (rc == 0) rc = make_map(&tv, v, B, Tk, Hkv, D, kDqBK);
+  if (rc == 0) rc = make_map(&tdq, dq, B, Tq, Hq, D, 64);
+  if (rc != 0) return rc;
+  const int grid = (Tq + kDqBQ - 1) / kDqBQ * Hq * B;
+  dq_kernel_wgmma<D><<<grid, kDqThreads, smem, stream>>>(
+      tq, tk, tv, tdo, tdq, static_cast<const float*>(lse), static_cast<const float*>(delta), B,
+      Tq, Tk, Hq, Hkv, causal, scale);
+  return (int)cudaGetLastError();
+}
+
 using DqFn = int (*)(const void*, const void*, const void*, const void*, const void*,
                      const void*, void*, int, int, int, int, int, int, float, cudaStream_t);
 using DkvFn = int (*)(const void*, const void*, const void*, const void*, const void*,
                       const void*, void*, void*, int, int, int, int, int, int, float,
                       cudaStream_t);
 
-// float32 -> the scalar kernels; bfloat16 -> the tensor-core kernels: dQ on
-// mma.sync, dK/dV on wgmma + TMA for D = 64 / 128 and on mma.sync for D = 16.
+// float32 -> the scalar kernels; bfloat16 -> the tensor-core kernels: dQ and
+// dK/dV on wgmma + TMA for D = 64 / 128 and on mma.sync for D = 16.
 DqFn pick_dq(int dtype, int D) {
   if (dtype == 0) {
     switch (D) {
@@ -935,8 +1198,8 @@ DqFn pick_dq(int dtype, int D) {
   } else if (dtype == 1) {
     switch (D) {
       case 16: return launch_dq_mma<16>;
-      case 64: return launch_dq_mma<64>;
-      case 128: return launch_dq_mma<128>;
+      case 64: return launch_dq_wgmma<64>;
+      case 128: return launch_dq_wgmma<128>;
     }
   }
   return nullptr;

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's attention kernels:
 // mbarriers, TMA loads and stores through 4-D tensor maps, 128-byte
-// swizzled wgmma descriptors, the wgmma products themselves, register
+// swizzled wgmma descriptors, the wgmma products themselves and the
+// product loops over swizzled tiles (Q K^T and P V shapes), register
 // fences and the tensor-map encoder. Included by flash_attention.cu (K1)
 // and flash_attention_bwd.cu (K2 / K3); each .cu is its own library, and
 // kernels/build.py hashes every csrc/*.cuh into each library's name, so an
@@ -227,6 +228,46 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a
 template <>
 __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
   wgmma_rs_n64(d, a, b);
+}
+
+// d (64 x N, fp32) = A (64 x 16, shared, K-major) * B (16 x N, shared,
+// K-major), plus d when acc != 0; N = 64 or 128.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int acc);
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+  wgmma_ss_n128(d, a, b, acc);
+}
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  wgmma_ss_n64(d, a, b, acc);
+}
+
+// The tiles below are stored as D / 64 column blocks of 128-byte swizzled
+// rows (64 bf16 values each), one TMA box per block, so the blocks of a
+// tile of R rows lie R * 128 bytes apart.
+
+// d (64 x N) = A B^T over the head dim D: A is 64 rows of a tile of ARows
+// rows, B the N rows of a tile of BRows rows, both read K-major (S = Q K^T,
+// dP = dO V^T, S^T = K Q^T, dP^T = V dO^T). D / 16 k-steps of 32 bytes.
+template <int D, int N, int ARows, int BRows>
+__device__ __forceinline__ void wgmma_abt(float (&d)[N / 2], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t ka = a + (kk / 4) * (ARows * 128) + (kk % 4) * 32;
+    const uint32_t kb = b + (kk / 4) * (BRows * 128) + (kk % 4) * 32;
+    wgmma_ss<N>(d, sw128_desc(ka, 16, 1024), sw128_desc(kb, 16, 1024), kk);
+  }
+}
+
+// d (64 x D) += A B: A (64 x K) in registers as K / 16 bf16 k-steps, B the
+// K rows of a tile of K rows read MN-major, 16 rows (2048 bytes) per k-step
+// (O += P V, dQ += dS K).
+template <int D, int K>
+__device__ __forceinline__ void wgmma_ab(float (&d)[D / 2], const uint32_t (&a)[K / 16][4],
+                                         uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) wgmma_rs<D>(d, a[kk], sw128_desc(b + kk * 2048, K * 128, 1024));
 }
 
 // The accumulator fragments of an m64nN product, rounded to bf16, as the

@@ -31,7 +31,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rms
 
 KERNELS = ("flash_attention", "flash_attention_dq", "flash_attention_dkv",
-           "decode_attention", "decode_combine", "rmsnorm")
+           "decode_attention", "rmsnorm")
 _COUNTERS = (_fa.launches, _dec.launches, _rms.launches)
 
 

@@ -139,8 +139,9 @@ def combine_splits(acc, m, l, kv_len, blk_s: int, out_dtype):
     """Logsumexp merge of split partials, (B,H,ns,D), (B,H,ns) x2 -> (B,H,D).
 
     As ``repro/kernels/decode_attention.py::combine_splits``, over the splits
-    that hold a valid key (the first ceil(kv_len / blk_s)); the split kernel
-    leaves the others unwritten, so they are masked before any arithmetic."""
+    that hold a valid key (the first ceil(kv_len / blk_s)); K4 leaves the
+    others unwritten, so they are masked before any arithmetic. The plain
+    version of the merge that K4's last block per head group does."""
     B, H, ns, D = acc.shape
     nvalid = (_per_batch(kv_len, B, acc.device) + blk_s - 1) // blk_s
     valid = (torch.arange(ns, device=acc.device)[None, :] < nvalid[:, None])[:, None, :]

@@ -115,7 +115,7 @@ def test_decode_attention_scalar_kv_len_matches_sdpa():
 @pytest.mark.parametrize("blk_s", [64, 256])  # the split length before and since BLK_S = 256
 @pytest.mark.parametrize("kv_len", [(256, 256), (64, 130)])
 def test_combine_splits_matches_jax(kv_len, blk_s):
-    """The plain merge of the combine kernel against repro's combine_splits,
+    """The plain merge of K4's splits against repro's combine_splits,
     over the splits that hold a valid key (the rest are never written), at
     the old and the new split length (kv_len scaled with it)."""
     from repro.kernels.decode_attention import combine_splits as jcombine
@@ -182,6 +182,8 @@ BWD_CASES = [  # B, T, Hq, Hkv, D, causal
     (1, 96, 4, 1, 64, True),      # MQA
     (2, 48, 2, 2, 16, False),     # non-causal
     (1, 77, 4, 2, 64, True),      # ragged T
+    (1, 129, 4, 2, 64, True),     # one query past the dQ kernel's 128-query block
+    (2, 40, 4, 4, 64, True),      # under one 64-key tile, MHA
 ]
 
 
@@ -423,49 +425,86 @@ def test_int_offsets_reach_the_kernel_as_scalars():
 # ------------------------------------------- K4's wrapper, the build's hash
 
 
-@pytest.mark.parametrize("kv_len", [None, 38, "tensor"])
-def test_decode_kv_len_reaches_the_kernel_as_a_scalar(kv_len, monkeypatch):
-    """K4 and K4b through their wrappers, the library replaced by a
-    recorder: an int (the decode step's idx + 1) or None goes to both C
-    functions as a null pointer and a scalar (S for None), and torch.full is
-    never called; a tensor goes as a pointer to a (B,) int32 on the device.
-    Each wrapper counts one launch."""
+class _FakeDecodeLib:
+    """Records the arguments of each decode_attention C call."""
+
+    def __init__(self):
+        self.calls = []
+
+    def decode_attention(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+def _fake_decode(monkeypatch, stream=0):
     from repro_torch.kernels import decode_attention as dec
 
-    calls = []
+    lib = _FakeDecodeLib()
+    monkeypatch.setattr(dec, "_lib", lambda: lib)
+    monkeypatch.setattr(dec, "check_cuda", lambda *a: None)
+    monkeypatch.setattr(dec, "raw_stream", lambda t: stream)
+    monkeypatch.setattr(dec, "launches", dec.collections.Counter())
+    monkeypatch.setattr(dec, "_scratch", {})
+    return dec, lib
 
-    class FakeLib:
-        def decode_attention_splits(self, *args):
-            calls.append(args)
-            return 0
 
-        def decode_attention_combine(self, *args):
-            calls.append(args)
-            return 0
-
+@pytest.mark.parametrize("kv_len", [None, 38, "tensor"])
+def test_decode_kv_len_reaches_the_kernel_as_a_scalar(kv_len, monkeypatch):
+    """K4 through its wrapper, the library replaced by a recorder: one C
+    call per decode_attention call and one counted launch. An int (the
+    decode step's idx + 1) or None goes as a null pointer and a scalar (S
+    for None), and torch.full is never called; a tensor goes as a pointer to
+    a (B,) int32 on the device."""
     def no_fill(*a, **k):
         raise AssertionError("torch.full called on the decode path")
 
-    monkeypatch.setattr(dec, "_lib", lambda: FakeLib())
-    monkeypatch.setattr(dec, "check_cuda", lambda *a: None)
-    monkeypatch.setattr(dec, "raw_stream", lambda t: 0)
+    dec, lib = _fake_decode(monkeypatch)
     monkeypatch.setattr(torch, "full", no_fill)
-    monkeypatch.setattr(dec, "launches", dec.collections.Counter())
     q, k = torch.zeros(2, 4, 16), torch.zeros(2, 300, 2, 16)
     arg = torch.tensor([5, 38]) if kv_len == "tensor" else kv_len
-    acc, m, l, kl = dec.decode_attention_splits(q, k, k, arg)
-    o = dec.combine_splits(acc, m, l, kl, out_dtype=q.dtype)
-    assert o.shape == (2, 4, 16) and acc.shape == (2, 4, dec.n_splits(300), 16)
-    splits, combine = calls
-    assert splits[13] == dec.n_splits(300) and splits[14] == dec.BLK_S
+    o = dec.decode_attention(q, k, k, arg)
+    assert o.shape == (2, 4, 16) and o.dtype == q.dtype
+    (call,) = lib.calls
+    assert call[7] == o.data_ptr()
+    assert call[8:15] == (2, 300, 4, 2, 16, dec.n_splits(300), dec.BLK_S)
     if kv_len == "tensor":
-        assert kl.dtype == torch.int32 and kl.shape == (2,) and kl.tolist() == [5, 38]
-        assert splits[3] == combine[3] == kl.data_ptr() and splits[4] == combine[4] == 0
+        assert call[3] is not None and call[4] == 0
     else:
-        want = 300 if kv_len is None else kv_len
-        assert kl == want and splits[3] is None and combine[3] is None
-        assert splits[4] == combine[4] == want
-    assert dec.launches == {"decode_attention": 1, "decode_combine": 1}
+        assert call[3] is None and call[4] == (300 if kv_len is None else kv_len)
+    assert dec.launches == {"decode_attention": 1}
+
+
+def test_decode_workspace_is_kept_per_stream(monkeypatch):
+    """The split partials' workspace and the arrival counters: allocated at
+    the first call (counters zeroed), reused by a second call at the same
+    shape, grown for a larger shape, and kept apart for another stream."""
+    dec, lib = _fake_decode(monkeypatch, stream=7)
+    q, k = torch.zeros(2, 4, 16), torch.zeros(2, 300, 2, 16)
+    dec.decode_attention(q, k, k, 40)
+    ((ws, counters),) = dec._scratch.values()
+    assert ws.dtype == torch.float32 and ws.numel() == 2 * 4 * dec.n_splits(300) * (16 + 2)
+    assert counters.dtype == torch.int32 and counters.numel() == 2 * 4
+    assert not counters.any()
+    dec.decode_attention(q, k, k, 300)
+    ((ws_again, counters_again),) = dec._scratch.values()
+    assert ws_again is ws and counters_again is counters
+    assert lib.calls[0][5:7] == lib.calls[1][5:7] == (ws.data_ptr(), counters.data_ptr())
+
+    big_q, big_k = torch.zeros(3, 8, 16), torch.zeros(3, 600, 2, 16)
+    dec.decode_attention(big_q, big_k, big_k, 500)
+    ((ws2, counters2),) = dec._scratch.values()
+    assert ws2.numel() == 3 * 8 * dec.n_splits(600) * 18 and counters2.numel() == 3 * 8
+    assert not counters2.any()
+    dec.decode_attention(q, k, k, 40)  # a smaller shape keeps the larger buffers
+    ((ws_again, counters_again),) = dec._scratch.values()
+    assert ws_again is ws2 and counters_again is counters2
+
+    monkeypatch.setattr(dec, "raw_stream", lambda t: 9)
+    dec.decode_attention(q, k, k, 40)
+    assert len(dec._scratch) == 2
+    ws9, counters9 = dec._scratch[(None, 9)]
+    assert ws9 is not ws2 and counters9 is not counters2
+    assert dec.launches == {"decode_attention": 5}
 
 
 @pytest.mark.parametrize("S,kv_len,nsplit,nvalid", [
@@ -478,7 +517,8 @@ def test_decode_kv_len_reaches_the_kernel_as_a_scalar(kv_len, monkeypatch):
 ])
 def test_decode_split_count(S, kv_len, nsplit, nvalid):
     """The split count K4's wrapper derives for its BLK_S (256 rows): the
-    grid's splits for the cache, and the ones that hold a key below kv_len."""
+    grid's splits for the cache, and the ones that hold a key below kv_len
+    (the partials the kernel's last block merges)."""
     from repro_torch.kernels.decode_attention import BLK_S, n_splits, valid_splits
 
     assert BLK_S == 256

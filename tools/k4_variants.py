@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""The port's split-K decode kernel (K4's split kernel) against variants of
-its design, on one CUDA card.
+"""The port's split-K decode kernel (K4, the splits and their merge in one
+launch) against variants of its design, on one CUDA card.
 
     python3 tools/k4_variants.py
 
@@ -10,8 +10,8 @@ for each variant below, each a copy with one design choice undone or moved
 split lengths. Every variant computes the same function: its output is held
 to the built kernel's. Each build is timed at the decode
 step's shape of the serve path (8 sequences, 16 / 8 heads of 128, bf16,
-a 1056-slot cache, kv_len 1040 as an int): the split kernel's own device
-time per call from torch.profiler with L2 flushed before each call, two
+a 1056-slot cache, kv_len 1040 as an int): the kernel's own device time
+per call from torch.profiler with L2 flushed before each call, two
 rounds, builds in turns. The bound is K and V up to kv_len read once at
 3.35 TB/s. The last line is one JSON object.
 """
@@ -39,6 +39,9 @@ Q_LOAD = """  // q of each head, pre-scaled into the exp2 domain, this lane's ve
 
 """
 CHUNKS = "  // This warp's chunks: c = warp, warp + kWarps, ... of the split's rows.\n"
+FLAG = """  extern __shared__ __align__(16) unsigned char smem[];
+  int& last = *reinterpret_cast<int*>(smem);
+"""
 
 VARIANTS = {  # name -> [(source text, replacement)], each must occur in the source
     "three stages per warp": [("constexpr int kStages = 2;", "constexpr int kStages = 3;")],
@@ -46,12 +49,12 @@ VARIANTS = {  # name -> [(source text, replacement)], each must occur in the sou
     "eight stages per warp": [("constexpr int kStages = 2;", "constexpr int kStages = 8;")],
     "eight warps per block": [("constexpr int kThreads = 128;", "constexpr int kThreads = 256;")],
     "split index fastest in the grid": [
-        ("const int si = blockIdx.y, b = blockIdx.z;", "const int si = blockIdx.x, b = blockIdx.z;"),
-        ("const int hk = blockIdx.x / nhb, g0 = (blockIdx.x % nhb) * GB;",
-         "const int hk = blockIdx.y / nhb, g0 = (blockIdx.y % nhb) * GB;"),
+        ("const int hb = blockIdx.x, si = blockIdx.y, b = blockIdx.z;",
+         "const int hb = blockIdx.y, si = blockIdx.x, b = blockIdx.z;"),
         ("dim3 grid(Hkv * ((G + GB - 1) / GB), nsplit, B);",
          "dim3 grid(nsplit, Hkv * ((G + GB - 1) / GB), B);")],
     "q read before the first loads": [(Q_LOAD, ""), (CHUNKS, Q_LOAD + CHUNKS)],
+    "arrival flag as a static __shared__ int": [(FLAG, "  __shared__ int last;\n")],
 }
 SPLITS = (128, 512)  # split lengths timed on the built kernel beside its BLK_S
 
@@ -88,9 +91,8 @@ def main() -> int:
         if proc.returncode != 0:
             raise SystemExit(f"k4_variants: {name!r} did not build:\n{log}")
         lib = ctypes.CDLL(str(so))
-        for fn in ("decode_attention_splits", "decode_attention_combine"):
-            getattr(lib, fn).argtypes = getattr(base, fn).argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+        lib.decode_attention.argtypes = base.decode_attention.argtypes
+        lib.decode_attention.restype = ctypes.c_int
         libs[name] = lib
 
     dev = torch.device("cuda", 0)
@@ -103,19 +105,19 @@ def main() -> int:
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     bound_ms = 2 * B * kv_len * HKV * D * 2 / 3.35e12 * 1e3
 
-    def split_device_ms(blk_s=dec.BLK_S, reps=20):
+    def kernel_device_ms(blk_s=dec.BLK_S, reps=20):
         for _ in range(3):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(reps):
                     flush.zero_()
-                    dec.decode_attention_splits(q, k, v, kv_len, blk_s=blk_s)
+                    dec.decode_attention(q, k, v, kv_len, blk_s=blk_s)
                 torch.cuda.synchronize()
             got = [e.self_device_time_total / e.count for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA
-                   and "splits_kernel" in e.key]
+                   and "decode_kernel" in e.key]
             if got:
                 return sum(got) / 1e3
-        raise SystemExit("k4_variants: the profiler saw no split kernel")
+        raise SystemExit("k4_variants: the profiler saw no decode kernel")
 
     want = dec.decode_attention(q, k, v, kv_len)
     runs = [(name, lib, dec.BLK_S) for name, lib in libs.items()]
@@ -127,14 +129,14 @@ def main() -> int:
             got = dec.decode_attention(q, k, v, kv_len, blk_s=blk_s)
             if not torch.allclose(got.float(), want.float(), atol=2e-2, rtol=1e-2):
                 raise SystemExit(f"k4_variants: {name!r} changed the result")
-            times[name].append(split_device_ms(blk_s))
+            times[name].append(kernel_device_ms(blk_s))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(f"bound {bound_ms:.4f} ms [{card}]")
     for name, t in times.items():
         print(f"{name}: {' / '.join(f'{x:.4f}' for x in t)} ms device, "
               f"{bound_ms / min(t):.0%} of the bound")
-    print(json.dumps({"k4_split_device_ms": times, "bound_ms": bound_ms, "card": card}))
+    print(json.dumps({"k4_device_ms": times, "bound_ms": bound_ms, "card": card}))
     return 0
 
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Times the PyTorch port's kernels of one checkout on one CUDA card, beside
 their PyTorch library yardsticks: flash-attention forward (K1), dQ (K2) and
-dK/dV (K3), split-K decode (K4, and K4 + its combine K4b) and RMSNorm (K5).
+dK/dV (K3), split-K decode (K4, with its merge of the splits) and RMSNorm
+(K5).
 
     python3 tools/torch_kernel_times.py [--root DIR] [--tag NAME]
 
@@ -16,15 +17,18 @@ prompt tokens): K1 over a 1056-slot cache with kv_len 1024, causal, 16 / 8
 heads of 128; K1, K2 and K3 at the training shape (4 x 1024, uncached,
 causal), with SDPA's backward (dQ + dK + dV) as the yardstick of K2 and K3;
 K4 at a decode step (8 sequences over a 1056-slot cache, kv_len 1040, an
-int as the decode path passes it): the split kernel alone (``k4_split``,
-only its own kernel counted, also at splits of 128 and 512 rows), K4 + K4b
-(``k4_total``, every kernel of the call: an older tree's kv_len fill
-included) and SDPA's decode call; K5 on the bf16 rows of prefill (8192,
+int as the decode path passes it): one ``decode_attention`` call
+(``k4_total``, every kernel of the call: the split and merge kernels of an
+older tree, and its kv_len fill where it had one; also at splits of 128 and
+512 rows) and SDPA's decode call; K5 on the bf16 rows of prefill (8192,
 2048) and (8192 x 16, 128), of the train step (4096, 2048) and of one
 decode step (8, 2048) and (8 x 16, 128). Each time is the median of 15
-calls between CUDA events with L2 flushed before each (``ms``) and the
-kernels' own device time per call from torch.profiler (``device_ms``). The
-last line is one JSON object.
+calls between CUDA events with L2 flushed before each (``ms``), the
+kernels' own device time per call from torch.profiler (``device_ms``) and
+the host clock per call over 200 calls back to back, ended by one
+synchronize (``wall_us``: the larger of the wrapper's host cost and the
+device time, so for the short decode and norm calls mostly the host's).
+The last line is one JSON object.
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 
 def main() -> int:
@@ -65,6 +70,15 @@ def main() -> int:
     def randn(*shape, dtype=bf):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
+    def wall_us(fn, reps=200):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e6
+
     def ms(fn, reps=15):
         fn()
         torch.cuda.synchronize()
@@ -79,11 +93,10 @@ def main() -> int:
         torch.cuda.synchronize()
         return statistics.median(a.elapsed_time(b) for a, b in ev)
 
-    def device_ms(fn, reps=10, only=None):
+    def device_ms(fn, reps=10):
         """Kernel time per call from torch.profiler, the flush's uint8 fill
-        left out by name (and, with ``only``, every kernel whose name lacks
-        it), each kernel's mean time times its launches per call; a session
-        that recorded none of fn's kernels is run again."""
+        left out by name, each kernel's mean time times its launches per
+        call; a session that recorded none of fn's kernels is run again."""
         for _ in range(3):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(reps):
@@ -92,8 +105,7 @@ def main() -> int:
                 torch.cuda.synchronize()
             got = [(e.self_device_time_total, e.count) for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA
-                   and "FillFunctor<unsigned char>" not in e.key and e.count >= reps // 2
-                   and (only is None or only in e.key)]
+                   and "FillFunctor<unsigned char>" not in e.key and e.count >= reps // 2]
             if got:
                 return sum(us / n * round(n / reps) for us, n in got) / 1e3
         return None
@@ -123,10 +135,9 @@ def main() -> int:
         "k3_train": lambda: fa.launch_dkv(qt, kt, vt, dot, lset, delta),
         "k2_train": lambda: fa.launch_dq(qt, kt, vt, dot, lset, delta),
         "sdpa_bwd_train": lambda: torch.autograd.grad(os_, (qs, ks, vs), dos, retain_graph=True),
-        "k4_split": lambda: dec.decode_attention_splits(qd, k, v, kv_len),
-        "k4_split_blk128": lambda: dec.decode_attention_splits(qd, k, v, kv_len, blk_s=128),
-        "k4_split_blk512": lambda: dec.decode_attention_splits(qd, k, v, kv_len, blk_s=512),
         "k4_total": lambda: dec.decode_attention(qd, k, v, kv_len),
+        "k4_total_blk128": lambda: dec.decode_attention(qd, k, v, kv_len, blk_s=128),
+        "k4_total_blk512": lambda: dec.decode_attention(qd, k, v, kv_len, blk_s=512),
         "sdpa_decode": lambda: F.scaled_dot_product_attention(
             qd[:, :, None], k[:, :kv_len].transpose(1, 2), v[:, :kv_len].transpose(1, 2),
             enable_gqa=True),
@@ -140,8 +151,7 @@ def main() -> int:
     }
     out = {"tag": args.tag, "root": args.root}
     for name, fn in calls.items():
-        only = "splits_kernel" if name.startswith("k4_split") else None
-        out[name] = {"ms": ms(fn), "device_ms": device_ms(fn, only=only)}
+        out[name] = {"ms": ms(fn), "device_ms": device_ms(fn), "wall_us": wall_us(fn)}
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     out["card"] = card
