@@ -3,28 +3,31 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure ends the run with a non-zero exit:
+It drives two models through the port's entry points: qwen3-1.7b (dense,
+head dim 128) and granite-moe-1b-a400m (MoE, 32 experts top-8, head dim
+64). Phases, in order; any failure ends the run with a non-zero exit:
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the CUDA kernels from the repo's sources (one nvcc per source);
   3. hold every kernel against its plain PyTorch version on the card, at the
-     serve and training paths' full-width shapes and at reduced ones (GQA
-     group 2, 4 and 8, MQA, non-causal, Tq and Tk that are not multiples of
-     K1's, K2's or K3's tiles, a kv_len that ends inside a key tile, one row
-     into a split, at 1 or at the cache's end, rows of one batch that end in
-     the first split and at the cache's end, an int kv_len next to a (B,)
-     tensor, q_offset > 0 over a cache longer than kv_len, head dims 16 / 64
-     / 128, RMSNorm rows of 16 / 64 / 100 / 128 / 2048 / 5000), in float32
-     (atol 1e-4: only the order of sums differs) and bfloat16 (atol 2e-2,
-     rtol 1e-2); K1's lse too, against the plain logsumexp; K2 on rows whose
-     scores all lie near -120 (dQ finite); K4 at kv_len 0 (exactly 0) and
-     in back-to-back calls at two shapes (its arrival counters reset); hold
-     the autograd Functions (flash attention on K1 + K2 + K3, RMSNorm on K5)
+     serve and training paths' full-width shapes of both models and at
+     reduced ones (GQA group 2, 4 and 8, MQA, non-causal, Tq and Tk that are
+     not multiples of K1's, K2's or K3's tiles, a kv_len that ends inside a
+     key tile, one row into a split, at 1 or at the cache's end, rows of one
+     batch that end in the first split and at the cache's end, an int kv_len
+     next to a (B,) tensor, q_offset > 0 over a cache longer than kv_len,
+     head dims 16 / 64 / 128, RMSNorm rows of 16 / 64 / 100 / 128 / 1024 /
+     2048 / 5000), in float32 (atol 1e-4: only the order of sums differs)
+     and bfloat16 (atol 2e-2, rtol 1e-2); K1's lse too, against the plain
+     logsumexp; K2 and K3 on rows whose scores all lie near -120 (dQ against
+     its plain version, dK and dV finite); K4 at kv_len 0 (exactly 0) and in
+     back-to-back calls at two shapes (its arrival counters reset); hold the
+     autograd Functions (flash attention on K1 + K2 + K3, RMSNorm on K5)
      against autograd of the plain versions and check that no kernel output
-     leaves the graph; then time each kernel at its full-width shape beside
-     its bound, its plain version and one PyTorch library call as a
-     yardstick (the port never calls that library function): CUDA events
-     around the call (ms) and the kernels' own device time from
-     torch.profiler (device_ms, library_device_ms);
+     leaves the graph; then time each kernel at both models' full-width
+     shapes (D 128 and D 64) beside its bound, its plain version and one
+     PyTorch library call as a yardstick (the port never calls that library
+     function): CUDA events around the call (ms) and the kernels' own device
+     time from torch.profiler (device_ms, library_device_ms);
   4. serve-path parity: qwen3-1.7b at full width with 2 layers in float32
      serves 2 ragged requests (prefill + 4 decode steps) on the card through
      the kernels and on the CPU through the plain versions; logits agree
@@ -39,8 +42,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
      the wall times of phase 5;
   7. train-step parity: 2-layer full-width qwen3-1.7b in float32, one
      consensus-gated train step on the card and on the CPU from the same
-     parameters; loss and gradient norm at rtol 1e-4, updated parameters
-     within AdamW's sign-like first step (see the phase);
+     parameters; loss, ce, the aux terms and gradient norm at rtol 1e-4,
+     updated parameters within AdamW's sign-like first step (see the phase);
   8. train: a Fast Raft control plane commits the shard lease, then full
      qwen3-1.7b (28 layers, bf16) trains through the port's Trainer on a
      one-rank NCCL group, global batch 4 x 1024 tokens, 1 warm-up + 4
@@ -50,15 +53,25 @@ Phases, in order; any failure ends the run with a non-zero exit:
      the profiled step's device time by kernel group;
   9. checkpoint resume on the card at the reduced config: 6 steps with a
      checkpoint at 3 committed through Fast Raft against a 'crash' after 3
-     and a resume; final losses at rtol 1e-4.
+     and a resume; final losses at rtol 1e-4;
+  10-14. phases 4-8 for granite-moe-1b-a400m (24 layers; 2 in the parity
+     phases), which also compare the expert choices and capacity masks card
+     vs CPU (none may differ), check that the routing recomputes identically
+     in the backward of a rematerialised train step, and put the MoE's
+     non-matmul kernels (gates, slots, dispatch, combine) into groups of
+     their own in the profiles.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``. There is no CPU fallback: with
-no CUDA device the script exits non-zero and prints no result. It imports
-nothing of jax and nothing of the JAX package ``repro``.
+The lines before the last are the granite shapes' (D 64) kernel timings as
+one JSON object, the card's name and power limit, and a JSON object with one
+entry per kernel; the last line is ``{"ok": true, "device": {...}}``. There
+is no CPU fallback: with no CUDA device the script exits non-zero and prints
+no result. It imports nothing of jax and nothing of the JAX package
+``repro``.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -79,11 +92,15 @@ PEAK_OPS = {torch.bfloat16: 989e12,  # dense bf16 tensor cores
 ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 RTOL = {torch.float32: 0.0, torch.bfloat16: 1e-2}
 
-# Full-width serve shapes (qwen3-1.7b): 8 requests, 1024 prompt, 32 new tokens.
+DENSE, MOE = "qwen3-1.7b", "granite-moe-1b-a400m"
+# Full-width serve shapes: 8 requests, 1024 prompt, 32 new tokens.
 B_SERVE, PROMPT, GEN = 8, 1024, 32
 MAX_LEN = PROMPT + GEN
+# qwen3-1.7b's widths; granite-moe-1b-a400m has the same 16 / 8 heads, of 64.
 D_MODEL, HQ, HKV, HD = 2048, 16, 8, 128
+G_D_MODEL, G_HD = 1024, 64
 DECODE_KV = PROMPT + GEN // 2  # kv_len of the middle decode step
+G_DECODE_KV = PROMPT + 1       # kv_len of the first decode step
 # Full-width training shape: global batch 4 x 1024 tokens.
 B_TRAIN, SEQ_TRAIN = 4, 1024
 
@@ -130,19 +147,24 @@ class Timer:
         name lacks it are left out too."""
         from torch.profiler import ProfilerActivity, profile
 
-        for _ in range(3):  # a session that recorded none of fn's kernels is run again
+        sessions = 8
+        for i in range(sessions):  # a session that recorded none of fn's kernels is run again
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(reps):
                     self.flush.zero_()
                     fn()
                 torch.cuda.synchronize()
-            got = [(e.self_device_time_total, e.count) for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and "FillFunctor<unsigned char>" not in e.key and e.count >= reps // 2
+            seen = [e for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+            got = [(e.self_device_time_total, e.count) for e in seen
+                   if "FillFunctor<unsigned char>" not in e.key and e.count >= reps // 2
                    and (only is None or only in e.key)]
             if got:
                 return sum(us / n * round(n / reps) for us, n in got) / 1e3
-        fail("the profiler saw no kernel of a timed call in three sessions")
+            log(f"  (profiler session {i + 1} saw none of the call's kernels, only "
+                f"{[(e.key[:40], e.count) for e in seen][:4]}; again)")
+            time.sleep(0.2 * (i + 1))
+        fail(f"the profiler saw no kernel of a timed call in {sessions} sessions")
 
 
 def bound_ms(nbytes: float, ops: float, dtype) -> tuple:
@@ -172,8 +194,6 @@ def check_kernels(dev, timer):
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rms
 
-    import torch.nn.functional as F
-
     gen = torch.Generator(device=dev).manual_seed(0)
     errs = {"flash_attention": [], "decode_attention": [], "rmsnorm": []}
     flash_cases = [  # B, Tq, Tk, Hq, Hkv, D, q_offset, kv_len, causal
@@ -186,9 +206,11 @@ def check_kernels(dev, timer):
         (1, 100, 100, 4, 2, 64, None, None, False),  # uncached, non-causal
         (2, 200, 333, 2, 2, 128, None, None, False), # MHA, non-causal, Tq != Tk
         (2, 61, 80, 4, 2, 16, 0, 61, True),          # reduced prefill, D 16 (mma.sync kernel)
+        (B_SERVE, PROMPT, MAX_LEN, HQ, HKV, G_HD, 0, PROMPT, True),  # granite's prefill, D 64
     ]
     decode_cases = [  # B, S, Hq, Hkv, D, kv_len (a list goes as a (B,) tensor)
         (B_SERVE, MAX_LEN, HQ, HKV, HD, [DECODE_KV] * 7 + [5]),
+        (B_SERVE, MAX_LEN, HQ, HKV, G_HD, G_DECODE_KV),    # granite's first decode step
         (B_SERVE, MAX_LEN, HQ, HKV, HD, 1),                # one key
         (B_SERVE, MAX_LEN, HQ, HKV, HD, dec.BLK_S + 1),    # one row into the second split
         (B_SERVE, MAX_LEN, HQ, HKV, HD, MAX_LEN),          # the whole cache
@@ -197,6 +219,7 @@ def check_kernels(dev, timer):
         (2, 333, 8, 2, 64, [5, 333]),
     ]
     rms_cases = [(B_SERVE * PROMPT, D_MODEL), (B_SERVE, D_MODEL),
+                 (B_SERVE * PROMPT, G_D_MODEL), (B_SERVE, G_D_MODEL),  # granite's rows
                  (B_SERVE * PROMPT * HQ, HD), (B_SERVE * HKV, HD), (122, 16), (1000, 64),
                  (333, 100), (7, 5000)]  # d not a multiple of 8; a row too long for registers
 
@@ -254,16 +277,30 @@ def check_kernels(dev, timer):
             check(f"rmsnorm rows{rows} d{d}", rms.rmsnorm(x, s), ref.rmsnorm(x, s), dtype,
                   errs["rmsnorm"])
     torch.cuda.synchronize()
+    dense = [timed(e, timer, errs) for e in forward_entries(gen, D_MODEL, HD, DECODE_KV)]
+    moe = [timed(e, timer, errs) for e in forward_entries(gen, G_D_MODEL, G_HD, G_DECODE_KV)]
+    return dense, moe
 
-    # Timing at the full-width serve shapes, bf16.
-    log("phase 3: timing at full-width shapes, bf16")
+
+def forward_entries(gen, d_model, hd, decode_kv):
+    """K1, K4 and K5 at one model's full-width serve shapes (16 / 8 heads of
+    ``hd``, rows of ``d_model``), bf16: each with its plain version, its
+    library call and its bound."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rms
+
+    import torch.nn.functional as F
+
+    log(f"phase 3: timing at full-width shapes, D {hd}, rows of {d_model}, bf16")
     bf = torch.bfloat16
     out = []
     # K1: prefill attention over the cache, kv_len = prompt.
-    q = randn(gen, (B_SERVE, PROMPT, HQ, HD), bf)
-    k, v = randn(gen, (B_SERVE, MAX_LEN, HKV, HD), bf), randn(gen, (B_SERVE, MAX_LEN, HKV, HD), bf)
+    q = randn(gen, (B_SERVE, PROMPT, HQ, hd), bf)
+    k, v = randn(gen, (B_SERVE, MAX_LEN, HKV, hd), bf), randn(gen, (B_SERVE, MAX_LEN, HKV, hd), bf)
     pairs = B_SERVE * HQ * PROMPT * (PROMPT + 1) // 2
-    nbytes = 2 * q.numel() * 2 + 2 * B_SERVE * PROMPT * HKV * HD * 2 + B_SERVE * HQ * PROMPT * 4
+    nbytes = 2 * q.numel() * 2 + 2 * B_SERVE * PROMPT * HKV * hd * 2 + B_SERVE * HQ * PROMPT * 4
     out.append(dict(
         name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:87",
@@ -272,29 +309,29 @@ def check_kernels(dev, timer):
         library=lambda: F.scaled_dot_product_attention(
             q.transpose(1, 2), k[:, :PROMPT].transpose(1, 2), v[:, :PROMPT].transpose(1, 2),
             is_causal=True, enable_gqa=True),
-        bound=bound_ms(nbytes, 4 * HD * pairs, bf)))
-    # K4: one decode step's attention, kv_len = DECODE_KV for the whole batch.
-    qd = randn(gen, (B_SERVE, HQ, HD), bf)
-    nbytes = 2 * qd.numel() * 2 + 2 * B_SERVE * DECODE_KV * HKV * HD * 2
+        bound=bound_ms(nbytes, 4 * hd * pairs, bf)))
+    # K4: one decode step's attention, kv_len = decode_kv for the whole batch.
+    qd = randn(gen, (B_SERVE, HQ, hd), bf)
+    nbytes = 2 * qd.numel() * 2 + 2 * B_SERVE * decode_kv * HKV * hd * 2
     out.append(dict(
         name="decode_attention", route="cuda", source="src/repro_torch/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:62",
-        fn=lambda: dec.decode_attention(qd, k, v, DECODE_KV),
-        plain=lambda: ref.decode_attention(qd, k, v, DECODE_KV),
+        fn=lambda: dec.decode_attention(qd, k, v, decode_kv),
+        plain=lambda: ref.decode_attention(qd, k, v, decode_kv),
         library=lambda: F.scaled_dot_product_attention(
-            qd[:, :, None], k[:, :DECODE_KV].transpose(1, 2), v[:, :DECODE_KV].transpose(1, 2),
+            qd[:, :, None], k[:, :decode_kv].transpose(1, 2), v[:, :decode_kv].transpose(1, 2),
             enable_gqa=True),
-        bound=bound_ms(nbytes, 4 * HD * HQ * B_SERVE * DECODE_KV, bf)))
+        bound=bound_ms(nbytes, 4 * hd * HQ * B_SERVE * decode_kv, bf)))
     # K5: the prefill's norm1 / norm2 / final norm rows.
-    x, s = randn(gen, (B_SERVE * PROMPT, D_MODEL), bf), randn(gen, (D_MODEL,), torch.float32)
+    x, s = randn(gen, (B_SERVE * PROMPT, d_model), bf), randn(gen, (d_model,), torch.float32)
     s_bf = s.to(bf)  # the fused library kernel wants the weight in x's type
     out.append(dict(
         name="rmsnorm", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
         replaces="src/repro/kernels/rmsnorm.py:34",
         fn=lambda: rms.rmsnorm(x, s), plain=lambda: ref.rmsnorm(x, s),
-        library=lambda: F.rms_norm(x, (D_MODEL,), weight=s_bf, eps=1e-6),
-        bound=bound_ms(2 * x.numel() * 2 + D_MODEL * 4, 4 * x.numel(), torch.float32)))
-    return [timed(e, timer, errs) for e in out]
+        library=lambda: F.rms_norm(x, (d_model,), weight=s_bf, eps=1e-6),
+        bound=bound_ms(2 * x.numel() * 2 + d_model * 4, 4 * x.numel(), torch.float32)))
+    return out
 
 
 def timed(e, timer, errs):
@@ -320,16 +357,15 @@ def check_backward(dev, timer):
     """K2 (dQ) and K3 (dK/dV) against ref.attention_dq / attention_dkv on the
     same o and lse, and the whole FlashAttentionFn against torch.autograd.grad
     of ref.attention; then the autograd guarantees of ops.py; then K2 and K3
-    timed at the full-width training shape."""
+    timed at both models' full-width training shapes."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
-
-    import torch.nn.functional as F
 
     gen = torch.Generator(device=dev).manual_seed(4)
     errs = {"flash_attention_dq": [], "flash_attention_dkv": []}
     cases = [  # B, T, Hq, Hkv, D, causal, every score near -120
         (B_TRAIN, SEQ_TRAIN, HQ, HKV, HD, True, False),  # full-width training shape
+        (B_TRAIN, SEQ_TRAIN, HQ, HKV, G_HD, True, False),  # granite's, D 64
         (2, 333, 4, 2, 128, True, False),   # ragged across K3's 128 keys and 64 queries
         (2, 200, 8, 2, 64, True, False),    # GQA group 4, D 64
         (1, SEQ_TRAIN + 40, HQ, HKV, HD, True, False),  # full heads, a ragged last key tile
@@ -341,7 +377,8 @@ def check_backward(dev, timer):
         (2, 40, 4, 2, 64, True, False),     # under one of K2's 64-key tiles
         (1, 200, 8, 1, 128, True, False),   # GQA group 8
         # lse ~ -114: K2's zero-filled keys past Tk would give P = inf there;
-        # dQ alone is checked (finite, and against the plain version).
+        # dQ is checked (finite, and against the plain version), dK and dV
+        # for finiteness.
         (1, 333, 4, 2, 128, False, True),
     ]
     for dtype in (torch.float32, torch.bfloat16):
@@ -367,9 +404,12 @@ def check_backward(dev, timer):
             check(f"flash_attention_dq {tag}", dq,
                   ref.attention_dq(q, k, v, do, lse, delta, causal=causal), dtype,
                   errs["flash_attention_dq"])
-            if negative:  # a case for K2's masking; dK = dS^T Q would carry |q| = 1358
-                continue
             dk, dv = fa.launch_dkv(q, k, v, do, lse, delta, causal=causal)
+            if negative:  # dK = dS^T Q carries |q| = 1358: finiteness only, no tolerance
+                if not (torch.isfinite(dk).all() and torch.isfinite(dv).all()):
+                    fail(f"flash_attention_dkv {tag}: non-finite dK or dV")
+                log(f"  flash_attention_dkv {tag}: dK and dV finite (ok)")
+                continue
             wk, wv = ref.attention_dkv(q, k, v, do, lse, delta, causal=causal)
             check(f"flash_attention_dkv dK {tag}", dk, wk, dtype, errs["flash_attention_dkv"])
             check(f"flash_attention_dkv dV {tag}", dv, wv, dtype, errs["flash_attention_dkv"])
@@ -407,11 +447,23 @@ def check_backward(dev, timer):
         log("  cached flash_attention under grad raises NotImplementedError (ok)")
     torch.cuda.synchronize()
 
-    log("phase 3: backward timing at the full-width training shape, bf16")
+    return ([timed(e, timer, errs) for e in backward_entries(gen, HD)],
+            [timed(e, timer, errs) for e in backward_entries(gen, G_HD)])
+
+
+def backward_entries(gen, hd):
+    """K2 and K3 at the full-width training shape with 16 / 8 heads of
+    ``hd``, bf16, beside SDPA's backward (dQ + dK + dV together)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    import torch.nn.functional as F
+
+    log(f"phase 3: backward timing at the full-width training shape, D {hd}, bf16")
     bf = torch.bfloat16
     B, T = B_TRAIN, SEQ_TRAIN
-    q, do = randn(gen, (B, T, HQ, HD), bf), randn(gen, (B, T, HQ, HD), bf)
-    k, v = randn(gen, (B, T, HKV, HD), bf), randn(gen, (B, T, HKV, HD), bf)
+    q, do = randn(gen, (B, T, HQ, hd), bf), randn(gen, (B, T, HQ, hd), bf)
+    k, v = randn(gen, (B, T, HKV, hd), bf), randn(gen, (B, T, HKV, hd), bf)
     o, lse = fa.flash_attention_fwd(q, k, v)
     delta = ref.attention_delta(o, do).contiguous()
     pairs = B * HQ * T * (T + 1) // 2
@@ -421,36 +473,169 @@ def check_backward(dev, timer):
     os_ = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
     dos = do.transpose(1, 2)
     sdpa_bwd = lambda: torch.autograd.grad(os_, (qs, ks, vs), dos, retain_graph=True)  # noqa: E731
-    out = [
+    log("  (library for both: SDPA's backward, dQ + dK + dV together)")
+    return [
         dict(name="flash_attention_dq", route="cuda",
              source="src/repro_torch/csrc/flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention.py:207",
              fn=lambda: fa.launch_dq(q, k, v, do, lse, delta),
              plain=lambda: ref.attention_dq(q, k, v, do, lse, delta), plain_reps=5,
              library=sdpa_bwd,
-             bound=bound_ms(2 * qbytes + 2 * kbytes + 2 * stat + qbytes, 6 * HD * pairs, bf)),
+             bound=bound_ms(2 * qbytes + 2 * kbytes + 2 * stat + qbytes, 6 * hd * pairs, bf)),
         dict(name="flash_attention_dkv", route="cuda",
              source="src/repro_torch/csrc/flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention.py:224",
              fn=lambda: fa.launch_dkv(q, k, v, do, lse, delta),
              plain=lambda: ref.attention_dkv(q, k, v, do, lse, delta), plain_reps=5,
              library=sdpa_bwd,
-             bound=bound_ms(2 * qbytes + 2 * kbytes + 2 * stat + 2 * kbytes, 8 * HD * pairs, bf)),
+             bound=bound_ms(2 * qbytes + 2 * kbytes + 2 * stat + 2 * kbytes, 8 * hd * pairs, bf)),
     ]
-    log("  (library for both: SDPA's backward, dQ + dK + dV together)")
-    return [timed(e, timer, errs) for e in out]
 
 
-# ------------------------------------------------------------ phase 4
+# ------------------------------------------------ the MoE layer, observed
 
-def path_parity(dev):
+MOE_STAGES = ("_gates", "_slots", "_dispatch", "_combine")
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """While open, every routing of ``repro_torch.models.moe`` (the result
+    of ``moe.route``) is recorded by device type: {"cuda": [...], "cpu": [...]}."""
+    from repro_torch.models import moe
+
+    inner, routes = moe.route, {"cuda": [], "cpu": []}
+
+    def route(cfg, router, xt, C):
+        r = inner(cfg, router, xt, C)
+        routes[xt.device.type].append(r)
+        return r
+
+    moe.route = route
+    try:
+        yield routes
+    finally:
+        moe.route = inner
+
+
+def compare_routes(card, cpu, top_k, what):
+    """Fails if any expert choice (its expert or its rank among the token's
+    choices) or any capacity-mask entry differs card vs CPU over matched
+    routing calls. Logs the counts and the closest call: the smallest gap
+    between neighbouring probabilities among each token's top k + 1 (CPU),
+    which a choice would have to cross to flip."""
+    if len(card) != len(cpu) or not card:
+        fail(f"{what}: {len(card)} routing calls on the card, {len(cpu)} on the CPU")
+    n_idx = n_keep = total = 0
+    margin, flipped = math.inf, []
+    for a, b in zip(card, cpu):
+        idx = a.expert_idx.cpu() != b.expert_idx
+        n_idx += int(idx.sum())
+        n_keep += int((a.keep.cpu() != b.keep).sum())
+        total += b.expert_idx.numel()
+        top = torch.topk(b.probs, min(top_k + 1, b.probs.shape[-1]), dim=-1).values
+        gaps = (top[:, :-1] - top[:, 1:]).min(dim=-1).values
+        margin = min(margin, gaps.min().item())
+        flipped += gaps[idx.any(dim=-1)].tolist()
+    log(f"  {what}: {n_idx} of {total} expert choices and {n_keep} of {total} capacity-mask "
+        f"entries differ card vs CPU, over {len(card)} routing calls; closest call: "
+        f"neighbouring top-{top_k + 1} router probabilities {margin:.3e} apart (CPU)")
+    if n_idx or n_keep:
+        fail(f"{what}: {n_idx} expert choices and {n_keep} capacity-mask entries differ card vs "
+             f"CPU; the probability gaps of the tokens whose choices differ: {flipped[:8]}")
+
+
+@contextlib.contextmanager
+def moe_ranges():
+    """While open, each stage of the MoE layer (``moe._gates``, ``_slots``,
+    ``_dispatch``, ``_combine``) runs inside a profiler range
+    ``moe.<stage>``, so that ``moe_split`` can find its kernels."""
+    from torch.profiler import record_function
+
+    from repro_torch.models import moe
+
+    saved = {name: getattr(moe, name) for name in MOE_STAGES}
+
+    def ranged(name, fn):
+        def run(*args, **kwargs):
+            with record_function(f"moe.{name.strip('_')}"):
+                return fn(*args, **kwargs)
+        return run
+
+    for name, fn in saved.items():
+        setattr(moe, name, ranged(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(moe, name, fn)
+
+
+def group_of(kernel: str) -> str:
+    return next((g for g, subs in KERNEL_GROUPS if any(s in kernel for s in subs)), "other")
+
+
+def moe_split(prof):
+    """{moe.<stage>: (ms, launches)} of the kernels that each MoE stage
+    launched inside its profiler range and that no kernel group claims (the
+    stage's matmuls stay in "matmul"). A kernel belongs to the range, on the
+    thread of the op that launched it, in which that op starts. Backward
+    kernels run on autograd's thread, outside the ranges, and stay in
+    "other"; a rematerialised forward runs the stages again there, inside
+    them (its saved matmuls are not run again). Checked: every call of a
+    stage launched kernels, and every call of a stage on one thread the same
+    kernels."""
+    import bisect
+
+    cpu = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+    ranges = {}  # thread -> sorted [(start, end, name, call index)]
+    calls = []   # per call of a stage: [name, thread, kernel names, ms of group "other", launches]
+    for e in cpu:
+        if e.name.startswith("moe."):
+            ranges.setdefault(e.thread, []).append(
+                (e.time_range.start, e.time_range.end, e.name, len(calls)))
+            calls.append([e.name, e.thread, [], 0.0, 0])
+    for rs in ranges.values():
+        rs.sort()
+    for e in cpu:
+        # A range's own device-side annotation, where the profiler makes one, is no kernel.
+        kernels = [k for k in e.kernels if not k.name.startswith("moe.")]
+        rs = ranges.get(e.thread)
+        if not kernels or not rs or e.name.startswith("moe."):
+            continue
+        i = bisect.bisect_right(rs, (e.time_range.start, math.inf)) - 1
+        if i < 0 or not rs[i][0] <= e.time_range.start < rs[i][1]:
+            continue
+        call = calls[rs[i][3]]
+        call[2] += [k.name[:70] for k in kernels]
+        mine = [k.duration for k in kernels if group_of(k.name) == "other"]
+        call[3] += sum(mine) / 1e3
+        call[4] += len(mine)
+    out, kinds = {}, {}
+    for name, thread, ks, ms, launches in calls:
+        if not ks:
+            fail(f"the profiler put no kernel in a call of {name}")
+        kinds.setdefault((name, thread), set()).add(tuple(sorted(ks)))
+        total = out.get(name, (0.0, 0))
+        out[name] = (total[0] + ms, total[1] + launches)
+    for (name, _), ns in kinds.items():
+        if len(ns) != 1:
+            a, b = (collections.Counter(x) for x in list(ns)[:2])
+            fail(f"the calls of {name} on one thread launched {len(ns)} different sets of "
+                 f"kernels, of {sorted(len(x) for x in ns)}; only in one: "
+                 f"{list((a - b).elements())}, only in another: {list((b - a).elements())}")
+    return out
+
+
+# ------------------------------------------------------ phases 4 and 10
+
+def path_parity(dev, arch, phase):
     from repro_torch.configs import registry
     from repro_torch.convert import params_from_numpy, params_to_numpy
     from repro_torch.models import zoo
     from repro_torch.runtime.serve import build_serve_fns
 
-    log("phase 4: path parity, qwen3-1.7b full width, 2 layers, float32, card vs CPU")
-    cfg = dataclasses.replace(registry.get("qwen3-1.7b"), n_layers=2)
+    log(f"phase {phase}: path parity, {arch} full width, 2 layers, float32, card vs CPU")
+    cfg = dataclasses.replace(registry.get(arch), n_layers=2)
     gpu = zoo.build(cfg, dtype=torch.float32, device=dev)
     gparams = gpu.init(torch.Generator(device=dev).manual_seed(1))
     cpu = zoo.build(cfg, dtype=torch.float32, device="cpu")
@@ -464,26 +649,31 @@ def path_parity(dev):
     params = {"card": gparams, "cpu": cparams}
     logits, caches = {}, {}
     worst = 0.0
-    for step in range(5):
-        for name in ("card", "cpu"):
-            prefill_fn, decode_fn = fns[name]
-            if step == 0:
-                logits[name], caches[name] = prefill_fn(params[name], {"tokens": tokens[:, :T]})
-            else:
-                batch = {"tokens": tokens[:, T + step - 1:T + step]}
-                logits[name], caches[name] = decode_fn(params[name], caches[name], batch)
-        a, b = logits["card"].cpu(), logits["cpu"]
-        err = (a - b).abs().max().item()
-        worst = max(worst, err)
-        log(f"  {'prefill' if step == 0 else f'decode {step}'}: max |card - cpu| {err:.3e}")
-        if not torch.allclose(a, b, atol=2e-3, rtol=2e-3):
-            fail(f"path parity step {step}: card and CPU logits differ by {err}")
+    with recorded_routes() as routes:
+        for step in range(5):
+            for name in ("card", "cpu"):
+                prefill_fn, decode_fn = fns[name]
+                if step == 0:
+                    logits[name], caches[name] = prefill_fn(params[name],
+                                                            {"tokens": tokens[:, :T]})
+                else:
+                    batch = {"tokens": tokens[:, T + step - 1:T + step]}
+                    logits[name], caches[name] = decode_fn(params[name], caches[name], batch)
+            a, b = logits["card"].cpu(), logits["cpu"]
+            err = (a - b).abs().max().item()
+            worst = max(worst, err)
+            log(f"  {'prefill' if step == 0 else f'decode {step}'}: max |card - cpu| {err:.3e}")
+            if not torch.allclose(a, b, atol=2e-3, rtol=2e-3):
+                fail(f"path parity step {step}: card and CPU logits differ by {err}")
+    if cfg.moe is not None:
+        compare_routes(routes["cuda"], routes["cpu"], cfg.moe.top_k,
+                       "routing (prefill + 4 decode steps, 2 layers)")
     return worst
 
 
-# ------------------------------------------------------------ phase 5
+# ------------------------------------------------- phases 5-6 and 11-12
 
-def serve(dev, card):
+def serve(dev, card, arch, phase):
     from repro_torch.configs import registry
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import generate
@@ -491,8 +681,8 @@ def serve(dev, card):
     from repro_torch.runtime.controlplane import ControlPlane
     from repro_torch.runtime.serve import build_serve_fns
 
-    cfg = registry.get("qwen3-1.7b")
-    log(f"phase 5: serve {cfg.name}, {cfg.n_layers} layers, bf16, {B_SERVE} requests x "
+    cfg = registry.get(arch)
+    log(f"phase {phase}: serve {cfg.name}, {cfg.n_layers} layers, bf16, {B_SERVE} requests x "
         f"{PROMPT} prompt + {GEN} generated")
     t0 = time.perf_counter()
     model = zoo.build(cfg, dtype=torch.bfloat16, device=dev)
@@ -522,8 +712,12 @@ def serve(dev, card):
     if out["tokens"].shape != (B_SERVE, GEN):
         fail(f"generated tokens of shape {out['tokens'].shape}")
     layers, steps = cfg.n_layers, GEN - 1
+    # Every forward (the prefill and each decode step) runs K5 on norm1 and
+    # norm2 of every layer, on q and k too where the arch has qk_norm, and
+    # once on the final norm.
+    norms = (2 + 2 * cfg.qk_norm) * layers + 1
     want = {"flash_attention": layers, "flash_attention_dq": 0, "flash_attention_dkv": 0,
-            "decode_attention": layers * steps, "rmsnorm": (4 * layers + 1) * GEN}
+            "decode_attention": layers * steps, "rmsnorm": norms * GEN}
     if counts != want:
         fail(f"launch counts {counts}, want {want}")
     t_pre, t_dec = out["t_prefill"], out["t_decode"]
@@ -531,7 +725,7 @@ def serve(dev, card):
     log(f"  decode: {steps} steps x {B_SERVE} seqs in {t_dec * 1e3:.2f} ms, "
         f"{t_dec * 1e3 / steps:.3f} ms/step, {steps * B_SERVE / t_dec:.1f} tok/s [{card}]")
     log(f"  sample generation: {out['tokens'][0].tolist()}")
-    where_time_goes(prefill_fn, decode_fn, params, prompt, t_pre, t_dec / steps, dev)
+    where_time_goes(prefill_fn, decode_fn, params, prompt, t_pre, t_dec / steps, phase + 1)
     return counts
 
 
@@ -548,23 +742,35 @@ KERNEL_GROUPS = (  # (group, substrings of the CUDA kernel name)
 
 def profile_groups(run):
     """(device busy ms, kernels, {group: ms}, the five costliest kernels of
-    group "other" as (name, ms, launches)) of one call of ``run``."""
+    group "other" as (name, ms, launches)) of one call of ``run``. The MoE
+    stages' kernels of group "other" move to groups of their own
+    (``moe_split``); the five costliest are listed before that move."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with moe_ranges(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
     groups, launches, other = {}, 0, []
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # A profiler range may also show as a device-side annotation: not a kernel.
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.key.startswith("moe."):
             continue
         launches += e.count
         ms = e.self_device_time_total / 1e3
-        group = next((g for g, subs in KERNEL_GROUPS if any(s in e.key for s in subs)), "other")
+        group = group_of(e.key)
         groups[group] = groups.get(group, 0.0) + ms
         if group == "other":
             other.append((e.key[:90], ms, e.count))
+    if not launches:  # the session lost its device records: nothing to split or check
+        log("  (the profiler recorded no kernel in this session)")
+        return 0.0, 0, groups, other
+    for stage, (ms, n) in moe_split(prof).items():
+        if ms > groups.get("other", 0.0) + 1e-6:
+            fail(f"{stage}: {ms} ms attributed, more than group other's {groups.get('other')}")
+        groups["other"] -= ms
+        groups[stage] = ms
+        log(f"    {stage}: {ms:.3f} ms in {n} launches outside the kernel groups")
     return sum(groups.values()), launches, groups, sorted(other, key=lambda x: -x[1])[:5]
 
 
@@ -576,11 +782,11 @@ def log_profile(name, busy, launches, groups, other, wall_ms):
         log(f"    other: {ms:.3f} ms in {count} launches of {key}")
 
 
-def where_time_goes(prefill_fn, decode_fn, params, prompt, t_pre, t_step, dev):
+def where_time_goes(prefill_fn, decode_fn, params, prompt, t_pre, t_step, phase):
     """Device time by kernel group for one prefill and one decode step,
     from torch.profiler; the idle share is 1 - busy / the unprofiled wall
     time of the same work measured above (the profiler slows the host)."""
-    log("phase 6: device time by kernel group (torch.profiler)")
+    log(f"phase {phase}: device time by kernel group (torch.profiler)")
     log_profile("prefill", *profile_groups(lambda: prefill_fn(params, prompt)), t_pre * 1e3)
     logits, cache = prefill_fn(params, prompt)
     tok = torch.argmax(logits, dim=-1)[:, None]
@@ -588,12 +794,17 @@ def where_time_goes(prefill_fn, decode_fn, params, prompt, t_pre, t_step, dev):
                 t_step * 1e3)
 
 
-# ------------------------------------------------------------ phase 7
+# ------------------------------------------------------ phases 7 and 13
 
-def train_parity(dev):
-    """One train step of 2-layer full-width qwen3-1.7b in fp32 on the card
+PARITY_METRICS = ("loss", "ce", "moe_load_balance", "moe_router_z", "grad_norm")
+
+
+def train_parity(dev, arch, phase):
+    """One train step of 2-layer full-width ``arch`` in fp32 on the card
     (kernels) and on the CPU (plain versions), from the same parameters on
-    the same batch."""
+    the same batch. For a MoE arch, the routings of both runs agree, and on
+    the card each layer's routing in the backward's recompute (remat) equals
+    its routing in the forward."""
     from repro_torch.configs import registry
     from repro_torch.convert import params_from_numpy, params_to_numpy
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -602,39 +813,53 @@ def train_parity(dev):
     from repro_torch.runtime import spmd
     from repro_torch.tree import leaves_with_paths
 
-    log("phase 7: train-step parity, qwen3-1.7b full width, 2 layers, float32, card vs CPU")
-    cfg = dataclasses.replace(registry.get("qwen3-1.7b"), n_layers=2)
+    log(f"phase {phase}: train-step parity, {arch} full width, 2 layers, float32, card vs CPU")
+    cfg = dataclasses.replace(registry.get(arch), n_layers=2)
     ocfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
     group = spmd.one_rank_group()
     raw = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=128, global_batch=2)
                       ).batch_at(0)
     out = {}
     gparams = None
-    for name, device in (("card", dev), ("cpu", "cpu")):
-        model = zoo.build(cfg, dtype=torch.float32, device=device)
-        if gparams is None:
-            gparams = model.init(torch.Generator(device=dev).manual_seed(5))
-            host = params_to_numpy(gparams)
-            params = gparams
-        else:
-            params = model.load(params_from_numpy(host, device))
-        state = spmd.TrainState(params, init(ocfg, params))
-        batch = {k: (torch.from_numpy(v) if k == "loss_mask" else torch.from_numpy(v).long()
-                     ).to(device) for k, v in raw.items()}
-        step = spmd.build_train_step(model, ocfg, group)
-        state, metrics = step(state, batch)
-        out[name] = ({k: float(v) for k, v in metrics.items()},
-                     {"/".join(p): t.cpu() for p, t in leaves_with_paths(state.params)})
-        del model, params, state
-        torch.cuda.empty_cache()
+    with recorded_routes() as routes:
+        for name, device in (("card", dev), ("cpu", "cpu")):
+            model = zoo.build(cfg, dtype=torch.float32, device=device)
+            if gparams is None:
+                gparams = model.init(torch.Generator(device=dev).manual_seed(5))
+                host = params_to_numpy(gparams)
+                params = gparams
+            else:
+                params = model.load(params_from_numpy(host, device))
+            state = spmd.TrainState(params, init(ocfg, params))
+            batch = {k: (torch.from_numpy(v) if k == "loss_mask" else torch.from_numpy(v).long()
+                         ).to(device) for k, v in raw.items()}
+            step = spmd.build_train_step(model, ocfg, group)
+            state, metrics = step(state, batch)
+            out[name] = ({k: float(v) for k, v in metrics.items()},
+                         {"/".join(p): t.cpu() for p, t in leaves_with_paths(state.params)})
+            del model, params, state
+            torch.cuda.empty_cache()
     (mc, pc), (mh, ph) = out["card"], out["cpu"]
-    log(f"  card: loss {mc['loss']:.6f} grad_norm {mc['grad_norm']:.6f}; "
-        f"cpu: loss {mh['loss']:.6f} grad_norm {mh['grad_norm']:.6f}")
-    for k in ("loss", "grad_norm"):
+    for name, m in (("card", mc), ("cpu", mh)):
+        log(f"  {name}: " + ", ".join(f"{k} {m[k]:.6f}" for k in PARITY_METRICS))
+    for k in PARITY_METRICS:
         if abs(mc[k] - mh[k]) > 1e-4 * abs(mh[k]):
             fail(f"train parity: {k} card {mc[k]} vs cpu {mh[k]} (rtol 1e-4)")
     if not (mc["committed"] == mh["committed"] == 1.0):
         fail("train parity: a step did not commit")
+    if cfg.moe is not None:
+        card, L = routes["cuda"], cfg.n_layers
+        compare_routes(card, routes["cpu"], cfg.moe.top_k,
+                       "routing (forward and the backward's recompute, 2 layers)")
+        if len(card) != 2 * L:
+            fail(f"{len(card)} routings on the card, want {2 * L} (forward + recompute)")
+        # The backward recomputes the layer groups last first.
+        for layer, (fwd, again) in enumerate(zip(card[:L], reversed(card[L:]))):
+            if not all(torch.equal(getattr(fwd, f), getattr(again, f))
+                       for f in ("expert_idx", "pos", "keep", "gates")):
+                fail(f"layer {layer}: the recomputed routing differs from the forward's")
+        log(f"  the backward's recompute chose the same experts, slots and gates as the "
+            f"forward in all {L} layers (card)")
     # AdamW's first step moves every parameter by about lr * sign(g): an
     # element whose tiny gradient differs in sign by rounding lands 2 lr
     # away. Every element within 3 lr; all but 0.1% within 1e-5.
@@ -649,13 +874,13 @@ def train_parity(dev):
         fail(f"train parity: updated parameters differ (max {worst}, share {frac})")
 
 
-# ------------------------------------------------------------ phase 8
+# ------------------------------------------------------ phases 8 and 14
 
-def train(dev, card):
-    """Full qwen3-1.7b (28 layers, bf16) trains through the port's Trainer
-    on a one-rank NCCL group, shard lease committed through Fast Raft: one
-    warm-up step, four measured steps, one profiled step. Every step is
-    checked: finite loss, committed, one all_reduce, exact launch counts."""
+def train(dev, card, arch, phase):
+    """Full ``arch`` (bf16) trains through the port's Trainer on a one-rank
+    NCCL group, shard lease committed through Fast Raft: one warm-up step,
+    four measured steps, one profiled step. Every step is checked: finite
+    loss, committed, one all_reduce, exact launch counts."""
     import torch.distributed as dist
 
     from repro_torch.configs import registry
@@ -664,15 +889,15 @@ def train(dev, card):
     from repro_torch.runtime.controlplane import ControlPlane
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
-    cfg = registry.get("qwen3-1.7b")
+    cfg = registry.get(arch)
     steps = 6  # 1 warm-up + 4 measured + 1 under the profiler
-    log(f"phase 8: train {cfg.name}, {cfg.n_layers} layers, bf16, global batch "
+    log(f"phase {phase}: train {cfg.name}, {cfg.n_layers} layers, bf16, global batch "
         f"{B_TRAIN} x {SEQ_TRAIN} tokens, remat={cfg.remat!r}, {steps} steps")
     torch.cuda.reset_peak_memory_stats()
     control = ControlPlane(n_nodes=3)
     trainer = Trainer(TrainerConfig(
         arch=cfg, steps=steps, global_batch=B_TRAIN, seq_len=SEQ_TRAIN, dtype=torch.bfloat16,
-        opt=AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=steps), device="cuda"),
+        opt=AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=steps), device=dev),
         control=control)
     leases = [c for c in control.applied if c.startswith("lease:")]
     if not leases:
@@ -708,13 +933,16 @@ def train(dev, card):
     peak = torch.cuda.max_memory_allocated() / 2**30
     L_ = cfg.n_layers
     # remat="dots": each group's forward runs again in the backward, so K1
-    # and K5 launch twice per layer; the final norm runs once.
+    # and K5 launch twice per layer (K5 on norm1, norm2 and, with qk_norm, on
+    # q and k); the final norm runs once.
     want = {name: 0 for name in ops.KERNELS}
     want.update(flash_attention=2 * L_, flash_attention_dq=L_, flash_attention_dkv=L_,
-                rmsnorm=2 * 4 * L_ + 1)
+                rmsnorm=2 * (2 + 2 * cfg.qk_norm) * L_ + 1)
     total = {name: 0 for name in ops.KERNELS}
     for i, (entry, (counts, reduces)) in enumerate(zip(logs, per_step)):
-        log(f"  step {i}: loss {entry['loss']:.4f}, grad_norm {entry['grad_norm']:.4f}, "
+        aux = (f", ce {entry['ce']:.4f}, moe_load_balance {entry['moe_load_balance']:.4f}, "
+               f"moe_router_z {entry['moe_router_z']:.4f}" if cfg.moe is not None else "")
+        log(f"  step {i}: loss {entry['loss']:.4f}{aux}, grad_norm {entry['grad_norm']:.4f}, "
             f"committed {entry['committed']:.0f}, n_yes {entry['n_yes']:.0f}, "
             f"{entry['wall_ms']:.2f} ms, {reduces} all_reduce; launches {counts}")
         if not math.isfinite(entry["loss"]) or entry["committed"] != 1.0:
@@ -725,8 +953,12 @@ def train(dev, card):
             fail(f"train step {i}: launch counts {counts}, want {want}")
         for k, v in counts.items():
             total[k] += v
-    if abs(logs[0]["loss"] - math.log(cfg.vocab_size - 1)) > 0.5:
-        fail(f"first loss {logs[0]['loss']} not within 0.5 of ln({cfg.vocab_size - 1})")
+    # Uniform predictions at init: ce near ln(vocab - 1); the loss adds the aux terms.
+    first = logs[0]
+    expect = math.log(cfg.vocab_size - 1) + first["moe_load_balance"] + first["moe_router_z"]
+    if abs(first["loss"] - expect) > 0.5:
+        fail(f"first loss {first['loss']} not within 0.5 of ln({cfg.vocab_size - 1}) plus the "
+             f"aux terms, {expect}")
     walls = [e["wall_ms"] for e in logs[1:steps - 1]]
     wall = statistics.median(walls)
     log(f"  measured steps: {', '.join(f'{w:.2f}' for w in walls)} ms; median {wall:.2f} ms, "
@@ -782,6 +1014,7 @@ def main() -> int:
         return 2
     from repro_torch.kernels import build
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -791,22 +1024,30 @@ def main() -> int:
     log(f"phase 1: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(f"phase 2: built {build.SOURCES} in {build.build():.1f} s")
     timer = Timer(dev)
-    kernels = check_kernels(dev, timer) + check_backward(dev, timer)
+    (fwd, fwd_d64), (bwd, bwd_d64) = check_kernels(dev, timer), check_backward(dev, timer)
+    kernels, kernels_d64 = fwd + bwd, fwd_d64 + bwd_d64
     del timer
-    path_parity(dev)
-    serve_counts = serve(dev, card)
-    torch.cuda.empty_cache()
-    train_parity(dev)
-    train_counts = train(dev, card)
-    torch.cuda.empty_cache()
-    checkpoint_resume()
-    for e in kernels:  # launches on the two main paths: one serve run + six train steps
-        e["launches"] = serve_counts[e["name"]] + train_counts[e["name"]]
+    counts = {}  # launches on each main path: one serve run, six train steps
+    for arch, first in ((DENSE, 4), (MOE, 10)):
+        path_parity(dev, arch, first)
+        counts[arch, "serve"] = serve(dev, card, arch, first + 1)
+        torch.cuda.empty_cache()
+        train_parity(dev, arch, first + 3)
+        counts[arch, "train"] = train(dev, card, arch, first + 4)
+        torch.cuda.empty_cache()
+        if arch == DENSE:
+            checkpoint_resume()
+    for e in kernels:
+        e["launches"] = sum(c[e["name"]] for c in counts.values())
+    for e in kernels_d64:
+        e["launches"] = counts[MOE, "serve"][e["name"]] + counts[MOE, "train"][e["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_device_ms")
     import torch.distributed as dist
 
-    dist.destroy_process_group()  # the one-rank group of phases 7-9
+    dist.destroy_process_group()  # the one-rank group of the train phases
+    log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels_d64": [{k: e[k] for k in keys} for e in kernels_d64]}))
     print(card)
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,11 +1,11 @@
 """Decoder stack: periodic layer groups with stacked parameters. Port of
-``repro/models/transformer.py`` for dense ``attn`` blocks.
+``repro/models/transformer.py`` for ``attn`` blocks, dense or MoE.
 
 Parameters keep the JAX layout: every leaf of a layer group is stacked over
 a leading group dim (``init_stack``), so a JAX tree converts leaf by leaf.
 JAX's ``lax.scan`` over the groups becomes a Python loop over that dim
 (each stacked leaf is unbound once, so its gradient is stacked once).
-MoE and SSM blocks (jamba, xlstm, MoE archs) are ROADMAP queue A and raise.
+SSM blocks (mamba, mlstm, slstm: jamba, xlstm) are ROADMAP queue A and raise.
 
 Training rematerialises each layer group as ``cfg.remat`` says, like the
 ``jax.checkpoint`` of ``repro.models.transformer.apply_stack``, through
@@ -16,7 +16,10 @@ backward of a rematerialised group reruns its forward, so the attention and
 RMSNorm kernels launch twice per layer and training step.
 
 Block structure:
-  attn:   x += Attn(norm(x));  x += FFN(norm(x))    (if d_ff > 0)
+  attn:   x += Attn(norm(x));  x += FFN/MoE(norm(x))    (if d_ff > 0)
+
+A MoE block also returns its aux losses; ``apply_stack`` sums them over the
+layers. Cached (serve) steps leave them out: no caller reads them there.
 """
 from __future__ import annotations
 
@@ -29,8 +32,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
 Params = Dict[str, Any]
+
+AUX_KEYS = ("moe_load_balance", "moe_router_z")
 
 
 def period_signature(cfg: ArchConfig) -> List[Tuple[str, bool]]:
@@ -46,11 +52,12 @@ def n_groups(cfg: ArchConfig) -> int:
     return cfg.n_layers // len(period_signature(cfg))
 
 
-def _require_dense(kind: str, is_moe: bool) -> None:
-    if kind != "attn" or is_moe:
+def _require_dense(kind: str) -> None:
+    """Raises for the recurrent (SSM) block kinds, which are not ported."""
+    if kind != "attn":
         raise NotImplementedError(
-            f"block ({kind!r}, moe={is_moe}) is not ported yet: repro_torch runs "
-            "dense attn blocks only (MoE and SSM blocks are ROADMAP queue A)")
+            f"block {kind!r} is not ported yet: repro_torch runs attn blocks, dense "
+            "or MoE (the SSM blocks mamba, mlstm and slstm are ROADMAP queue A)")
 
 
 # ------------------------------------------------------------------- blocks
@@ -58,12 +65,12 @@ def _require_dense(kind: str, is_moe: bool) -> None:
 
 def init_block(cfg: ArchConfig, kind: str, is_moe: bool, gen: torch.Generator,
                dtype) -> Params:
-    _require_dense(kind, is_moe)
+    _require_dense(kind)
     p: Params = {"norm1": L.init_norm(cfg, cfg.d_model, gen.device),
                  "mixer": L.init_attention(cfg, gen, dtype)}
     if cfg.d_ff > 0:
         p["norm2"] = L.init_norm(cfg, cfg.d_model, gen.device)
-        p["ffn"] = L.init_ffn(cfg, gen, dtype)
+        p["ffn"] = M.init_moe(cfg, gen, dtype) if is_moe else L.init_ffn(cfg, gen, dtype)
     return p
 
 
@@ -77,16 +84,23 @@ def apply_block(
     positions: Optional[torch.Tensor],
     cache: Optional[Params],
     cache_pos: Optional[int],
-) -> Tuple[torch.Tensor, Optional[Params]]:
-    _require_dense(kind, is_moe)
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Optional[Params]]:
+    """(x, aux, cache): aux holds a MoE block's aux losses (uncached calls
+    only) and is empty otherwise."""
+    _require_dense(kind)
+    aux: Dict[str, torch.Tensor] = {}
     h = L.apply_norm(cfg, p["norm1"], x)
     y, new_cache = L.attention(cfg, p["mixer"], h, positions=positions, cache=cache,
                                cache_pos=cache_pos)
     x = x + y
     if cfg.d_ff > 0:
         h2 = L.apply_norm(cfg, p["norm2"], x)
-        x = x + L.apply_ffn(cfg, p["ffn"], h2)
-    return x, new_cache
+        if is_moe:
+            y2, aux = M.apply_moe(cfg, p["ffn"], h2, with_aux=cache is None)
+        else:
+            y2 = L.apply_ffn(cfg, p["ffn"], h2)
+        x = x + y2
+    return x, aux, new_cache
 
 
 # -------------------------------------------------------------------- stack
@@ -121,7 +135,7 @@ def init_stack_cache(cfg: ArchConfig, batch: int, max_len: int, device,
     G = n_groups(cfg)
     out = {}
     for j, (kind, is_moe) in enumerate(sig):
-        _require_dense(kind, is_moe)
+        _require_dense(kind)
         one = L.init_attn_cache(cfg, batch, max_len, device, dtype)
         out[f"b{j}"] = _map(lambda a: a[None].repeat(G, *([1] * a.ndim)), one)
     return out
@@ -147,30 +161,40 @@ def apply_stack(
     caches: Optional[Params] = None,
     cache_pos: Optional[int] = None,
     train: bool = False,
-) -> Tuple[torch.Tensor, Optional[Params]]:
-    """Runs every layer group in order. Caches are updated in place (each
-    group's slice of the stacked cache is a view), so the returned caches
-    are the ones passed in. ``train`` rematerialises each group per
-    ``cfg.remat`` (uncached calls only)."""
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Optional[Params]]:
+    """Runs every layer group in order: (x, aux, caches). aux sums the MoE
+    blocks' aux losses over the layers (empty for a dense stack or a cached
+    call). Caches are updated in place (each group's slice of the stacked
+    cache is a view), so the returned caches are the ones passed in.
+    ``train`` rematerialises each group per ``cfg.remat`` (uncached calls
+    only)."""
     sig = period_signature(cfg)
     unbound = _map(lambda a: a.unbind(0), stack_params)
 
     def group_body(gp, x, g):
+        aux: Dict[str, torch.Tensor] = {}
         for j, (kind, is_moe) in enumerate(sig):
             gc = None if caches is None else _map(lambda a: a[g], caches[f"b{j}"])
-            x, _ = apply_block(cfg, kind, is_moe, gp[f"b{j}"], x, positions=positions,
-                               cache=gc, cache_pos=cache_pos)
-        return x
+            x, a, _ = apply_block(cfg, kind, is_moe, gp[f"b{j}"], x, positions=positions,
+                                  cache=gc, cache_pos=cache_pos)
+            aux = _add(aux, a)
+        return x, aux
 
     remat = train and caches is None and cfg.remat != "none"
     if remat and cfg.remat not in ("dots", "full"):
         raise ValueError(f"unknown remat {cfg.remat!r}")
+    aux: Dict[str, torch.Tensor] = {}
     for g in range(n_groups(cfg)):
         gp = _map(lambda t: t[g], unbound)
         if remat:
             ctx = _CONTEXT_FN.get(cfg.remat)
-            x = checkpoint(group_body, gp, x, g, use_reentrant=False,
-                           **({"context_fn": ctx} if ctx else {}))
+            x, a = checkpoint(group_body, gp, x, g, use_reentrant=False,
+                              **({"context_fn": ctx} if ctx else {}))
         else:
-            x = group_body(gp, x, g)
-    return x, caches
+            x, a = group_body(gp, x, g)
+        aux = _add(aux, a)
+    return x, aux, caches
+
+
+def _add(acc: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {**acc, **{k: acc[k] + v if k in acc else v for k, v in new.items()}}

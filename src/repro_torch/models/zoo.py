@@ -28,7 +28,6 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 Params = Dict[str, Any]
-AUX_KEYS = ("moe_load_balance", "moe_router_z")
 
 
 class _Tree(nn.Module):
@@ -105,10 +104,13 @@ class Model(nn.Module):
 
     def forward(self, params: Params, batch: Dict[str, torch.Tensor], train: bool = False
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(logits, aux): aux sums the MoE aux losses over the layers, and
+        is 0 for each term a stack does not produce (a dense stack)."""
         h = self._embed(params, batch)
-        h, _ = T.apply_stack(self.cfg, params["stack"], h, train=train)
+        h, aux, _ = T.apply_stack(self.cfg, params["stack"], h, train=train)
         h = L.apply_norm(self.cfg, params["final_norm"], h)
-        aux = {k: torch.zeros((), device=h.device) for k in AUX_KEYS}
+        aux = {k: aux[k] if k in aux else torch.zeros((), device=h.device)
+               for k in T.AUX_KEYS}
         return self._head(params, h), aux
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]
@@ -145,8 +147,8 @@ class Model(nn.Module):
         B, Tn = x.shape[:2]
         h = self._embed(params, batch)
         cache = self.init_cache(B, max_len)
-        h, layers = T.apply_stack(self.cfg, params["stack"], h,
-                                  caches=cache["layers"], cache_pos=0)
+        h, _, layers = T.apply_stack(self.cfg, params["stack"], h,
+                                     caches=cache["layers"], cache_pos=0)
         h = L.apply_norm(self.cfg, params["final_norm"], h)
         logits = self._head(params, h[:, -1:])[:, 0]
         return logits, {"layers": layers, "pos": Tn}
@@ -156,8 +158,8 @@ class Model(nn.Module):
         """One token for every sequence in the batch."""
         pos = cache["pos"]
         h = self._embed(params, batch, pos_offset=pos)
-        h, layers = T.apply_stack(self.cfg, params["stack"], h,
-                                  caches=cache["layers"], cache_pos=pos)
+        h, _, layers = T.apply_stack(self.cfg, params["stack"], h,
+                                     caches=cache["layers"], cache_pos=pos)
         h = L.apply_norm(self.cfg, params["final_norm"], h)
         logits = self._head(params, h[:, -1:])[:, 0]
         return logits, {"layers": layers, "pos": pos + h.shape[1]}

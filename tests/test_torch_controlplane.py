@@ -20,6 +20,7 @@ COPIED = (
     "core/__init__.py", "core/types.py", "core/statemachine.py", "core/metrics.py",
     "core/raft.py", "core/fast_raft.py", "core/sim.py", "data/pipeline.py",
     "runtime/controlplane.py", "configs/base.py", "configs/qwen3_1_7b.py",
+    "configs/granite_moe_1b_a400m.py", "configs/llama4_scout_17b_a16e.py",
 )
 # The only edits a copy may carry: (original text, text in the copy).
 HUNKS = {

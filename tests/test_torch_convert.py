@@ -41,3 +41,28 @@ def test_round_trip_is_bit_exact(dtype):
     again = dict(_leaves(params_from_numpy(params_to_numpy(tparams), "cpu")))
     for path, t in tleaves.items():
         assert torch.equal(again[path].to(t.dtype), t), path
+
+
+def test_moe_bf16_tree_keeps_its_fp32_router():
+    """A bfloat16 MoE tree: the router stays float32 both ways, and casting
+    each leaf back to its own type restores the tree bit for bit."""
+    cfg = jregistry.get("granite-moe-1b-a400m", reduced=True)
+    jparams = jzoo.build(cfg, dtype=jnp.bfloat16).init(jax.random.PRNGKey(1))
+    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
+    tleaves = dict(_leaves(tparams))
+    assert tleaves[("stack", "b0", "ffn", "router")].dtype == torch.float32
+    assert tleaves[("stack", "b0", "ffn", "w_up_e")].dtype == torch.bfloat16
+    again = dict(_leaves(params_from_numpy(params_to_numpy(tparams), "cpu")))
+    for path, t in tleaves.items():
+        assert torch.equal(again[path].to(t.dtype), t), path
+
+
+def test_params_to_numpy_copies_cpu_leaves():
+    """A CPU tensor's .numpy() shares its memory: the host tree must not
+    follow a later in-place update (the train step updates in place)."""
+    tree = {"a": torch.ones(3), "b": {"c": torch.ones(2, dtype=torch.bfloat16)}}
+    host = params_to_numpy(tree)
+    tree["a"].add_(1.0)
+    tree["b"]["c"].add_(1.0)
+    np.testing.assert_array_equal(host["a"], np.ones(3, np.float32))
+    np.testing.assert_array_equal(host["b"]["c"], np.ones(2, np.float32))

@@ -3,6 +3,8 @@ reduced qwen3-1.7b in fp32: parameters are initialised in JAX, converted
 leaf by leaf with ``convert.params_from_numpy``, and both frameworks run on
 the same inputs. Tolerance: rtol/atol 2e-4, that of tests/test_models_smoke.py.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -42,8 +44,12 @@ def _tokens(cfg, B, T, seed):
 
 
 def test_configs_match():
-    for reduced in (False, True):
-        assert vars(registry.get(ARCH, reduced)) == vars(jregistry.get(ARCH, reduced))
+    assert registry.list_archs() == [
+        "granite-moe-1b-a400m", "llama4-scout-17b-a16e", "qwen3-1.7b"]
+    for arch in registry.list_archs():
+        for reduced in (False, True):  # asdict: the MoEConfig classes of two packages
+            assert (dataclasses.asdict(registry.get(arch, reduced))
+                    == dataclasses.asdict(jregistry.get(arch, reduced)))
 
 
 def test_norms_and_rope_match(pair):
@@ -124,8 +130,6 @@ def test_other_block_features_match(variant):
     """The branches qwen3 does not take (layernorm, gelu, learned positions,
     qkv bias, an untied head, precomputed frontend embeddings): forward and
     prefill + one decode step against JAX on one reduced config each."""
-    import dataclasses
-
     jcfg = dataclasses.replace(jregistry.get(ARCH, reduced=True), **variant)
     jmodel = jzoo.build(jcfg, dtype=jnp.float32)
     jparams = jmodel.init(jax.random.PRNGKey(6))
@@ -199,8 +203,6 @@ def test_init_layout_matches_jax():
 
 
 def test_unported_blocks_raise():
-    import dataclasses
-
     from repro_torch.models import transformer as T
 
     cfg = dataclasses.replace(registry.get(ARCH, reduced=True), block_pattern=("attn", "mamba"))
