@@ -1,11 +1,14 @@
 """Decoder stack: periodic layer groups with stacked parameters. Port of
-``repro/models/transformer.py`` for ``attn`` blocks, dense or MoE.
+``repro/models/transformer.py``: every block kind (attn, mamba, mlstm,
+slstm), with a dense or MoE FFN where the block has one.
 
 Parameters keep the JAX layout: every leaf of a layer group is stacked over
 a leading group dim (``init_stack``), so a JAX tree converts leaf by leaf.
 JAX's ``lax.scan`` over the groups becomes a Python loop over that dim
 (each stacked leaf is unbound once, so its gradient is stacked once).
-SSM blocks (mamba, mlstm, slstm: jamba, xlstm) are ROADMAP queue A and raise.
+Heterogeneous archs (jamba's mamba/attn interleave, xlstm's mlstm/slstm mix,
+MoE every other layer) repeat the smallest period of (block kind, is_moe)
+signatures, as in ``repro``.
 
 Training rematerialises each layer group as ``cfg.remat`` says, like the
 ``jax.checkpoint`` of ``repro.models.transformer.apply_stack``, through
@@ -17,9 +20,17 @@ RMSNorm kernels launch twice per layer and training step.
 
 Block structure:
   attn:   x += Attn(norm(x));  x += FFN/MoE(norm(x))    (if d_ff > 0)
+  mamba:  x += Mamba(norm(x)); x += FFN/MoE(norm(x))    (if d_ff > 0)
+  mlstm:  x += mLSTM(norm(x))          (integrated up/down projections)
+  slstm:  x += sLSTM(norm(x))          (integrated 4/3 FFN)
 
 A MoE block also returns its aux losses; ``apply_stack`` sums them over the
 layers. Cached (serve) steps leave them out: no caller reads them there.
+
+The cache of an attention block is its K/V, written in place; that of a
+recurrent block is its state (mamba: conv in the model type, h fp32; mlstm:
+C, n, m fp32; slstm: c, n, h, m fp32), which the mixer returns anew and the
+stack copies into the cache.
 """
 from __future__ import annotations
 
@@ -33,6 +44,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
 
 Params = Dict[str, Any]
 
@@ -52,23 +64,23 @@ def n_groups(cfg: ArchConfig) -> int:
     return cfg.n_layers // len(period_signature(cfg))
 
 
-def _require_dense(kind: str) -> None:
-    """Raises for the recurrent (SSM) block kinds, which are not ported."""
-    if kind != "attn":
-        raise NotImplementedError(
-            f"block {kind!r} is not ported yet: repro_torch runs attn blocks, dense "
-            "or MoE (the SSM blocks mamba, mlstm and slstm are ROADMAP queue A)")
-
-
 # ------------------------------------------------------------------- blocks
 
 
 def init_block(cfg: ArchConfig, kind: str, is_moe: bool, gen: torch.Generator,
                dtype) -> Params:
-    _require_dense(kind)
-    p: Params = {"norm1": L.init_norm(cfg, cfg.d_model, gen.device),
-                 "mixer": L.init_attention(cfg, gen, dtype)}
-    if cfg.d_ff > 0:
+    p: Params = {"norm1": L.init_norm(cfg, cfg.d_model, gen.device)}
+    if kind == "attn":
+        p["mixer"] = L.init_attention(cfg, gen, dtype)
+    elif kind == "mamba":
+        p["mixer"] = S.init_mamba(cfg, gen, dtype)
+    elif kind == "mlstm":
+        p["mixer"] = S.init_mlstm(cfg, gen, dtype)
+    elif kind == "slstm":
+        p["mixer"] = S.init_slstm(cfg, gen, dtype)
+    else:
+        raise ValueError(kind)
+    if cfg.d_ff > 0 and kind in ("attn", "mamba"):
         p["norm2"] = L.init_norm(cfg, cfg.d_model, gen.device)
         p["ffn"] = M.init_moe(cfg, gen, dtype) if is_moe else L.init_ffn(cfg, gen, dtype)
     return p
@@ -86,14 +98,24 @@ def apply_block(
     cache_pos: Optional[int],
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Optional[Params]]:
     """(x, aux, cache): aux holds a MoE block's aux losses (uncached calls
-    only) and is empty otherwise."""
-    _require_dense(kind)
+    only) and is empty otherwise. An attention block's cache is updated in
+    place and returned; a recurrent block returns its new state (None when
+    ``cache`` is None)."""
     aux: Dict[str, torch.Tensor] = {}
     h = L.apply_norm(cfg, p["norm1"], x)
-    y, new_cache = L.attention(cfg, p["mixer"], h, positions=positions, cache=cache,
-                               cache_pos=cache_pos)
+    if kind == "attn":
+        y, new_cache = L.attention(cfg, p["mixer"], h, positions=positions, cache=cache,
+                                   cache_pos=cache_pos)
+    elif kind == "mamba":
+        y, new_cache = S.apply_mamba(cfg, p["mixer"], h, state=cache)
+    elif kind == "mlstm":
+        y, new_cache = S.apply_mlstm(cfg, p["mixer"], h, state=cache)
+    elif kind == "slstm":
+        y, new_cache = S.apply_slstm(cfg, p["mixer"], h, state=cache)
+    else:
+        raise ValueError(kind)
     x = x + y
-    if cfg.d_ff > 0:
+    if cfg.d_ff > 0 and kind in ("attn", "mamba"):
         h2 = L.apply_norm(cfg, p["norm2"], x)
         if is_moe:
             y2, aux = M.apply_moe(cfg, p["ffn"], h2, with_aux=cache is None)
@@ -101,6 +123,19 @@ def apply_block(
             y2 = L.apply_ffn(cfg, p["ffn"], h2)
         x = x + y2
     return x, aux, new_cache
+
+
+def init_block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int, device,
+                     dtype) -> Params:
+    if kind == "attn":
+        return L.init_attn_cache(cfg, batch, max_len, device, dtype)
+    if kind == "mamba":
+        return S.init_mamba_state(cfg, batch, device, dtype)
+    if kind == "mlstm":
+        return S.init_mlstm_state(cfg, batch, device)
+    if kind == "slstm":
+        return S.init_slstm_state(cfg, batch, device)
+    raise ValueError(kind)
 
 
 # -------------------------------------------------------------------- stack
@@ -135,8 +170,7 @@ def init_stack_cache(cfg: ArchConfig, batch: int, max_len: int, device,
     G = n_groups(cfg)
     out = {}
     for j, (kind, is_moe) in enumerate(sig):
-        _require_dense(kind)
-        one = L.init_attn_cache(cfg, batch, max_len, device, dtype)
+        one = init_block_cache(cfg, kind, batch, max_len, device, dtype)
         out[f"b{j}"] = _map(lambda a: a[None].repeat(G, *([1] * a.ndim)), one)
     return out
 
@@ -175,8 +209,11 @@ def apply_stack(
         aux: Dict[str, torch.Tensor] = {}
         for j, (kind, is_moe) in enumerate(sig):
             gc = None if caches is None else _map(lambda a: a[g], caches[f"b{j}"])
-            x, a, _ = apply_block(cfg, kind, is_moe, gp[f"b{j}"], x, positions=positions,
-                                  cache=gc, cache_pos=cache_pos)
+            x, a, new = apply_block(cfg, kind, is_moe, gp[f"b{j}"], x, positions=positions,
+                                    cache=gc, cache_pos=cache_pos)
+            if gc is not None and kind != "attn":  # a recurrent block's new state
+                for name, dst in gc.items():
+                    dst.copy_(new[name])
             aux = _add(aux, a)
         return x, aux
 

@@ -13,7 +13,8 @@ still takes ``params`` first, as in JAX, so a converted JAX tree can be
 passed directly; training differentiates such a tree of detached leaves
 with ``torch.autograd.grad`` (``runtime/spmd.py``), as JAX differentiates
 its functional loss. The cache's ``pos`` is a Python int: one position for
-the whole batch, as in ``repro``. Cached steps update the cache in place.
+the whole batch, as in ``repro``. Cached steps update the cache in place:
+attention K/V and the recurrent mixers' states alike.
 """
 from __future__ import annotations
 
@@ -142,7 +143,10 @@ class Model(nn.Module):
                 max_len: int) -> Tuple[torch.Tensor, Params]:
         """Parallel prompt pass that also fills the decode cache: attention
         layers write the prompt's K/V into cache slots [0, T) and attend
-        causally over them (one cached multi-token step at cache_pos 0)."""
+        causally over them (one cached multi-token step at cache_pos 0);
+        recurrent layers fold the prompt into their carried state through
+        their chunked forms. A left-padded prompt runs its pad tokens
+        through the recurrence, as in ``repro``."""
         x = batch.get("tokens", batch.get("embeddings"))
         B, Tn = x.shape[:2]
         h = self._embed(params, batch)

@@ -21,6 +21,10 @@ COPIED = (
     "core/raft.py", "core/fast_raft.py", "core/sim.py", "data/pipeline.py",
     "runtime/controlplane.py", "configs/base.py", "configs/qwen3_1_7b.py",
     "configs/granite_moe_1b_a400m.py", "configs/llama4_scout_17b_a16e.py",
+    "core/hierarchy.py", "core/fuzzer.py", "configs/shapes.py",
+    "configs/jamba_v01_52b.py", "configs/xlstm_1_3b.py", "configs/qwen3_4b.py",
+    "configs/qwen15_4b.py", "configs/phi3_medium_14b.py", "configs/internvl2_2b.py",
+    "configs/musicgen_large.py",
 )
 # The only edits a copy may carry: (original text, text in the copy).
 HUNKS = {
