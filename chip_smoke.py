@@ -75,7 +75,20 @@ a non-zero exit:
      ``ssm.mlstm`` and ``ssm.slstm``;
   19. train-step parity as phase 7 for 2-layer jamba (mamba + attn, no MoE:
      the MoE's is phase 13's) and xlstm, with exact launch counts;
-  20. train full xlstm-1.3b (bf16, 4 x 1024) as phase 8.
+  20. train full xlstm-1.3b (bf16, 4 x 1024) as phase 8;
+  21. the data plane: four spawned ranks, all on this card, over a
+     (pod=2, data=2, model=1) mesh on gloo (NCCL refuses two ranks on one
+     device) train full-width qwen3-1.7b cut to 8 layers, one 1024-token
+     sequence a rank: FSDP weights streamed per layer group (ZeRO-3) on K1 /
+     K2 / K3 / K5. (a) two fp32 steps against a one-rank step of the whole
+     batch run before the spawn: loss and grad_norm at rtol 1e-4, the
+     gathered parameters as in phase 7; (b) two bf16 steps with the int8
+     cross-pod hop: dequantize(q) + r_new == g + r_old on every FSDP leaf to
+     fp32 rounding, a non-zero residual after the first step; (c) per rank
+     and step exact K1 / K2 / K3 / K5 launches and all-gather /
+     reduce-scatter / all_reduce calls; per-rank peak memory, the step
+     walls (gloo through host memory: nothing of an NCCL data plane) and
+     the bytes each collective moved.
 
 The lines before the last are the granite shapes' (D 64) and jamba's
 shapes' kernel timings as one JSON object each, the card's name and power
@@ -93,10 +106,13 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -939,8 +955,9 @@ def train_parity(dev, arch, phase, **changes):
     cfg = two_layers(arch, **changes)
     log(f"phase {phase}: train-step parity, {arch} full width, 2 layers {cfg.block_types()}"
         f"{', moe=None' if 'moe' in changes else ''}, float32, card vs CPU")
+    from repro_torch.launch.mesh import make_host_mesh
+
     ocfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
-    group = spmd.one_rank_group()
     raw = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=128, global_batch=2)
                       ).batch_at(0)
     out = {}
@@ -957,7 +974,7 @@ def train_parity(dev, arch, phase, **changes):
             state = spmd.TrainState(params, init(ocfg, params))
             batch = {k: (torch.from_numpy(v) if k == "loss_mask" else torch.from_numpy(v).long()
                          ).to(device) for k, v in raw.items()}
-            step = spmd.build_train_step(model, ocfg, group)
+            step = spmd.build_train_step(model, ocfg, make_host_mesh(torch.device(device).type))
             ops.reset_launches()
             state, metrics = step(state, batch)
             if name == "card":
@@ -1137,6 +1154,278 @@ def checkpoint_resume():
         fail(f"resumed loss {a} vs uninterrupted {b} (rtol 1e-4)")
 
 
+# ------------------------------------------------------------ phase 21
+
+DP_MESH = ((2, 2, 1), ("pod", "data", "model"))  # 4 ranks on the one card
+DP_LAYERS = 8           # qwen3-1.7b's 28 cut to 8: 4 ranks share 80 GB
+DP_STEPS = 2
+DP_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)  # phase 7's
+COLLECTIVES = ("all_gather_into_tensor", "reduce_scatter_tensor", "all_reduce")
+
+
+def dataplane_collectives(cfg, compress_pod):
+    """Collective calls of one streamed train step on (pod=2, data=2) with
+    remat: all-gathers: the leaves outside the stack with an FSDP dim, up
+    front (one call), then one per layer group in the forward and one more
+    in its recompute, and with compress_pod the int8 hop over "pod";
+    reduce-scatters: one per group (the gathers' backward) and one for the
+    leaves outside the stack; all_reduces: the fused vote + plain leaves,
+    the squared norm and non-finite count of the FSDP shards over "data",
+    and without compress_pod the sum over "pod"."""
+    from repro_torch.models.transformer import n_groups
+
+    G = n_groups(cfg)
+    return {"all_gather_into_tensor": 1 + 2 * G + bool(compress_pod),
+            "reduce_scatter_tensor": G + 1,
+            "all_reduce": 2 + (not compress_pod)}
+
+
+def dataplane_batch(cfg, step, rows=None):
+    """Rows ``rows`` of SyntheticLM's global batch, its loss mask all ones.
+    The step averages the ranks' per-sequence means (``repro``'s loss), the
+    one-rank step the mean over the whole batch; the two agree only where
+    every row counts the same tokens, and SyntheticLM's masks drop each
+    row's EOS labels (1,020 to 1,024 of 1,024)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+
+    raw = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=SEQ_TRAIN,
+                                 global_batch=B_TRAIN)).batch_at(step)
+    raw["loss_mask"] = np.ones_like(raw["loss_mask"])
+    rows = rows or slice(0, B_TRAIN)
+    return {k: (torch.from_numpy(v[rows].copy()) if k == "loss_mask"
+                else torch.from_numpy(v[rows].copy()).long()).to("cuda")
+            for k, v in raw.items()}
+
+
+def dataplane_model(dtype):
+    from repro_torch.configs import registry
+    from repro_torch.models import zoo
+
+    cfg = dataclasses.replace(registry.get(DENSE), n_layers=DP_LAYERS)
+    return cfg, zoo.build(cfg, dtype=dtype, device="cuda")
+
+
+def dataplane_rank(rank, world, addr, base_path, out_dir):
+    """One rank of phase 21 (a spawned process): (a) two streamed steps in
+    fp32 against the one-rank baseline, (b) two bf16 steps with the int8
+    pod hop, checking the error-feedback identity on every FSDP leaf, (c)
+    kernel launches and collective calls per step. Writes its findings to
+    ``out_dir/rank<r>.json``; raises on any failure."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import adamw, compression
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime import spmd
+    from repro_torch.tree import leaves_with_paths
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=addr, rank=rank, world_size=world)
+    try:
+        mesh = make_mesh(*DP_MESH, device_type="cuda")
+        r = mesh.batch_index()
+        calls = {n: [0, 0] for n in COLLECTIVES}  # (calls, bytes)
+        orig = {n: getattr(dist, n) for n in COLLECTIVES}
+
+        def counting(name):
+            def call(*args, **kwargs):
+                t = args[1] if name != "all_reduce" else args[0]
+                calls[name][0] += 1
+                calls[name][1] += t.numel() * t.element_size()
+                return orig[name](*args, **kwargs)
+            return call
+
+        ef_checks = []
+        quantize_leaf = compression.quantize_leaf
+
+        def checked_quantize(g, res):
+            """The error-feedback identity dequantize(q) + r_new == g + r_old."""
+            gf = g.float() + res
+            q, scale, new_r = quantize_leaf(g, res)
+            err = (q.float() * scale + new_r - gf).abs().max().item()
+            ef_checks.append((err, gf.abs().max().item(), new_r.abs().max().item()))
+            return q, scale, new_r
+
+        out = {"rank": rank, "batch_index": r, "runs": {}}
+        for run, dtype, compress in (("a", torch.float32, False), ("b", torch.bfloat16, True)):
+            cfg, model = dataplane_model(dtype)
+            ocfg = adamw.AdamWConfig(**DP_OPT)
+            torch.cuda.reset_peak_memory_stats()
+            state = spmd.make_train_state(model, ocfg, torch.Generator(device="cuda").manual_seed(7),
+                                          compress_pod=compress, mesh=mesh)
+            step_fn = spmd.build_train_step(model, ocfg, mesh, compress_pod=compress)
+            specs = spmd.flat_specs(model, mesh)
+            n_fsdp = sum(shd.fsdp_dim(s) is not None for s in specs.values())
+            steps = []
+            for i in range(DP_STEPS):
+                batch = dataplane_batch(cfg, i, slice(r, r + 1))
+                for n in COLLECTIVES:
+                    setattr(dist, n, counting(n))
+                    calls[n] = [0, 0]
+                compression.quantize_leaf = checked_quantize
+                ef_checks.clear()
+                ops.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                try:
+                    state, metrics = step_fn(state, batch)
+                    torch.cuda.synchronize()
+                finally:
+                    for n in COLLECTIVES:
+                        setattr(dist, n, orig[n])
+                    compression.quantize_leaf = quantize_leaf
+                wall = (time.perf_counter() - t0) * 1e3
+                counts = ops.launch_counts()
+                if counts != train_launches(cfg):
+                    raise AssertionError(f"run {run} step {i}: launches {counts}, want "
+                                         f"{train_launches(cfg)}")
+                want = dataplane_collectives(cfg, compress)
+                got = {n: c for n, (c, _) in calls.items()}
+                if got != want:
+                    raise AssertionError(f"run {run} step {i}: collective calls {got}, want {want}")
+                if compress:
+                    if len(ef_checks) != n_fsdp:
+                        raise AssertionError(f"{len(ef_checks)} leaves quantized, want {n_fsdp}")
+                    worst = max(err / max(top, 1e-30) for err, top, _ in ef_checks)
+                    if worst > 1e-6:
+                        raise AssertionError(f"error feedback off by {worst} of max |g + r|")
+                steps.append({"metrics": {k: float(v) for k, v in metrics.items()},
+                              "wall_ms": wall, "launches": counts,
+                              "collectives": {n: list(v) for n, v in calls.items()},
+                              "ef_rel_err": max((e / max(t, 1e-30) for e, t, _ in ef_checks),
+                                                default=None),
+                              "ef_residual_max": max((m for _, _, m in ef_checks), default=None)})
+            entry = {"steps": steps,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+            if run == "a":
+                # Every gathered leaf against the one-rank baseline's.
+                base = torch.load(base_path, mmap=True, weights_only=True)
+                worst, frac, over = 0.0, (0.0, ""), []
+                for path, leaf in leaves_with_paths(state.params):
+                    key = "/".join(path)
+                    full = shd.unshard_leaf(leaf, specs[key], mesh)
+                    if rank == 0:
+                        d = (full.cpu() - base[key]).abs()
+                        worst = max(worst, d.max().item())
+                        n = int((d > 1e-5).sum())
+                        frac = max(frac, (n / d.numel(), key))
+                        if n > max(1, 1e-3 * d.numel()):
+                            over.append((key, n, d.numel()))
+                    del full
+                entry["params"] = {"max_abs": worst, "worst_share": frac, "over": over}
+            out["runs"][run] = entry
+            del state, step_fn, model
+            torch.cuda.empty_cache()
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def dataplane(card):
+    """Phase 21: the data plane on the card. Four ranks (spawned processes,
+    all on cuda:0) over a (pod=2, data=2, model=1) mesh train full-width
+    qwen3-1.7b cut to 8 layers, global batch 4 x 1024 (one sequence a rank):
+    FSDP weights streamed per layer group over "data" on K1 / K2 / K3 / K5,
+    gradients reduce-scattered and carried over "pod". The group is gloo:
+    NCCL refuses two ranks on one device, so every collective goes through
+    host memory, and the walls measure nothing of a multi-GPU NCCL data
+    plane. Returns the ranks' kernel launches, summed."""
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import spmd
+    from repro_torch.tree import leaves_with_paths
+
+    cfg, model = dataplane_model(torch.float32)
+    log(f"phase 21: data plane, {cfg.name} full width cut to {cfg.n_layers} of 28 layers, "
+        f"mesh {dict(zip(DP_MESH[1], DP_MESH[0]))} as 4 gloo ranks on one card, global batch "
+        f"{B_TRAIN} x {SEQ_TRAIN}")
+    # (a)'s baseline: one rank, the whole batch, fp32, on the card.
+    ocfg = adamw.AdamWConfig(**DP_OPT)
+    state = spmd.make_train_state(model, ocfg, torch.Generator(device="cuda").manual_seed(7))
+    log(f"  {sum(t.numel() for _, t in leaves_with_paths(state.params)) / 1e9:.3f} B parameters; "
+        f"the one-rank baseline: {DP_STEPS} fp32 steps on the whole batch")
+    step_fn = spmd.build_train_step(model, ocfg, make_host_mesh("cuda"))
+    base_metrics = []
+    for i in range(DP_STEPS):
+        state, metrics = step_fn(state, dataplane_batch(cfg, i))
+        base_metrics.append({k: float(v) for k, v in metrics.items()})
+    tmp = tempfile.mkdtemp(prefix="dataplane-", dir=os.path.join(ROOT, "build"))
+    base_path = os.path.join(tmp, "base.pt")
+    torch.save({"/".join(p): t.cpu() for p, t in leaves_with_paths(state.params)}, base_path)
+    del state, step_fn, model
+    torch.cuda.empty_cache()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    mp.spawn(dataplane_rank, args=(4, f"tcp://localhost:{port}", base_path, tmp), nprocs=4)
+    log(f"  4 ranks ran in {time.perf_counter() - t0:.1f} s")
+    ranks = []
+    for rank in range(4):
+        with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+            ranks.append(json.load(f))
+    total = {name: 0 for name in ranks[0]["runs"]["a"]["steps"][0]["launches"]}
+    for res in ranks:
+        for run in res["runs"].values():
+            for st in run["steps"]:
+                for k, v in st["launches"].items():
+                    total[k] += v
+    # (a): loss and grad_norm against the baseline at rtol 1e-4, params as phase 7.
+    for i, want in enumerate(base_metrics):
+        for res in ranks:
+            got = res["runs"]["a"]["steps"][i]["metrics"]
+            for k in ("loss", "grad_norm"):
+                if abs(got[k] - want[k]) > 1e-4 * abs(want[k]):
+                    fail(f"phase 21 step {i}: rank {res['rank']} {k} {got[k]} vs one rank "
+                         f"{want[k]} (rtol 1e-4)")
+            if got["committed"] != 1.0 or got["n_yes"] != 4.0:
+                fail(f"phase 21 step {i}: rank {res['rank']} committed {got['committed']}, "
+                     f"n_yes {got['n_yes']}")
+        log(f"  (a) fp32 step {i}: loss {ranks[0]['runs']['a']['steps'][i]['metrics']['loss']:.6f}"
+            f" vs one rank {want['loss']:.6f}, grad_norm "
+            f"{ranks[0]['runs']['a']['steps'][i]['metrics']['grad_norm']:.6f} vs "
+            f"{want['grad_norm']:.6f}")
+    p = ranks[0]["runs"]["a"]["params"]
+    log(f"  (a) gathered params after {DP_STEPS} steps: max |4 ranks - 1 rank| {p['max_abs']:.3e}, "
+        f"worst leaf's share above 1e-5 {p['worst_share'][0]:.2e} ({p['worst_share'][1]})")
+    if p["max_abs"] > 3 * DP_OPT["lr"] or p["over"]:
+        fail(f"phase 21: gathered parameters differ from the one-rank step (max "
+             f"{p['max_abs']}; leaves with more than 0.1% above 1e-5: {p['over']})")
+    # (b): the error-feedback identity held in every rank (checked there);
+    # the residual is non-zero after the first step.
+    for res in ranks:
+        b = res["runs"]["b"]["steps"]
+        if not b[0]["ef_residual_max"] or not all(st["metrics"]["committed"] == 1.0 for st in b):
+            fail(f"phase 21 (b): rank {res['rank']} residual {b[0]['ef_residual_max']}, "
+                 f"committed {[st['metrics']['committed'] for st in b]}")
+    for res in ranks:
+        for run in ("a", "b"):
+            r = res["runs"][run]
+            for i, st in enumerate(r["steps"]):
+                coll = ", ".join(f"{n} {c} calls {b / 2**20:.1f} MiB"
+                                 for n, (c, b) in st["collectives"].items())
+                ef = (f", EF identity max rel err {st['ef_rel_err']:.2e}, max |residual| "
+                      f"{st['ef_residual_max']:.3e}" if st["ef_rel_err"] is not None else "")
+                log(f"  rank {res['rank']} (batch shard {res['batch_index']}) ({run}) step {i}: "
+                    f"loss {st['metrics']['loss']:.6f}, grad_norm {st['metrics']['grad_norm']:.6f}"
+                    f", wall {st['wall_ms']:.1f} ms over gloo through host memory; {coll}{ef}")
+            log(f"  rank {res['rank']} ({run}) peak memory allocated {r['peak_gib']:.2f} GiB "
+                f"[{card}]")
+    log(f"  launches per rank and step as train_launches; collective calls as "
+        f"dataplane_collectives; phase 21 launches in all: {total}")
+    shutil.rmtree(tmp)
+    return total
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -1190,6 +1479,8 @@ def main() -> int:
     # Two measured steps, not four: the sLSTM's 6 x 1024 sequential steps make
     # an xlstm train step ~50 s on this path (PERF.md).
     counts[XLSTM, "train"] = train(dev, card, registry.get(XLSTM), 20, measured=2)
+    torch.cuda.empty_cache()
+    counts[DENSE, "dataplane"] = dataplane(card)
     for e in kernels:
         e["launches"] = sum(c[e["name"]] for c in counts.values())
     for e in kernels_d64:

@@ -195,12 +195,19 @@ def _save_npy(path: str, arr: np.ndarray, bf16: bool) -> None:
         f.write(np.ascontiguousarray(arr).tobytes())
 
 
-def _flatten_with_paths(tree: Params) -> List[Tuple[str, np.ndarray, str]]:
-    """(key, host array, dtype name) per leaf, in JAX's flatten order."""
+def _flatten_with_paths(tree: Params, full_leaf=None, keep: bool = True
+                        ) -> List[Tuple[str, np.ndarray, str]]:
+    """(key, host array, dtype name) per leaf, in JAX's flatten order.
+    ``full_leaf(path, leaf)`` makes a sharded leaf whole first (every rank
+    calls it, one leaf at a time); ``keep=False`` keeps nothing (a rank that
+    only takes part in the gathers)."""
     out = []
     for path, leaf in leaves_with_paths(tree):
-        name = str(leaf.dtype).replace("torch.", "")
-        out.append(("/".join(path), _to_host(leaf), name))
+        if full_leaf is not None:
+            leaf = full_leaf(path, leaf)
+        if keep:
+            name = str(leaf.dtype).replace("torch.", "")
+            out.append(("/".join(path), _to_host(leaf), name))
     return out
 
 
@@ -222,11 +229,18 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------ save
 
-    def save(self, step: int, trees: Dict[str, Params], async_: bool = True) -> None:
+    def save(self, step: int, trees: Dict[str, Params], async_: bool = True,
+             full_leaf: Optional[Callable] = None, write: bool = True) -> None:
+        """Sharded state: ``full_leaf(path, leaf)`` gathers each leaf to its
+        full shape (every rank calls ``save``) and only the rank with
+        ``write`` writes; the state is never gathered whole at once."""
         self.wait()
         # Host copies BEFORE going async: the train step updates the state
         # in place.
-        host_trees = {name: _flatten_with_paths(tree) for name, tree in trees.items()}
+        host_trees = {name: _flatten_with_paths(tree, full_leaf, write)
+                      for name, tree in trees.items()}
+        if not write:
+            return
 
         def work():
             try:
@@ -306,9 +320,12 @@ class CheckpointManager:
         self,
         templates: Dict[str, Params],
         step: Optional[int] = None,
+        local_leaf: Optional[Callable] = None,
     ) -> Tuple[int, Dict[str, Params]]:
         """Load into the structure of ``templates``: each leaf takes the
-        type and device of the template's leaf."""
+        type and device of the template's leaf. The files hold full leaves;
+        ``local_leaf(path, full)`` keeps this rank's shard of one (so a
+        checkpoint written on one mesh restores on another)."""
         self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -323,11 +340,14 @@ class CheckpointManager:
                 key = "/".join(path)
                 entry = manifest["index"][f"{name}/{key}"]
                 arr = np.load(os.path.join(d, entry["file"]))
-                assert list(arr.shape) == list(leaf.shape), (key, arr.shape, leaf.shape)
                 if entry["dtype"] == "bfloat16":
                     t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
                 else:
                     t = torch.from_numpy(arr.copy())
-                loaded.append(t.to(device=leaf.device, dtype=leaf.dtype))
+                t = t.to(device=leaf.device, dtype=leaf.dtype)
+                if local_leaf is not None:
+                    t = local_leaf(path, t)
+                assert list(t.shape) == list(leaf.shape), (key, arr.shape, leaf.shape)
+                loaded.append(t)
             out[name] = unflatten(template, loaded)
         return step, out

@@ -13,6 +13,14 @@ collective call over the group:
                    into one flat fp32 buffer reduced by exactly one
                    ``all_reduce`` call, so consensus costs no extra round.
 
+The FSDP data plane adds the tiled collectives along any dim:
+``all_gather_many`` / ``reduce_scatter_many`` move several leaves, each
+along its own dim, in ONE ``all_gather_into_tensor`` / ``reduce_scatter_tensor``
+call, and ``GatherShard`` is the autograd Function whose forward is the
+gather and whose backward is the reduce-scatter (sum): the transpose that
+JAX's autodiff gives ``lax.all_gather``. Sums run in fp32 (a bfloat16 leaf
+is cast back after), gathers move the leaves' own bytes.
+
 Every function takes the group explicitly. A world of one rank is a real
 one-rank group whose collectives run (and are counted), not a skipped call.
 Trees are nested dicts of tensors (``repro_torch.tree``).
@@ -103,6 +111,88 @@ def psum(tree: Any, group) -> Any:
         return y
 
     return tree_map(one, tree)
+
+
+def _moved(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x`` with ``dim`` first, contiguous (the collectives split dim 0)."""
+    return x.movedim(dim, 0).contiguous() if dim else x.contiguous()
+
+
+def _aligned(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16  # every leaf starts 16-byte aligned in the buffer
+
+
+def all_gather_many(xs, dims, group):
+    """Each ``xs[i]`` gathered from every rank of ``group`` and tiled along
+    ``dims[i]`` (rank order), all leaves in one ``all_gather_into_tensor``
+    of their bytes."""
+    w = dist.get_world_size(group)
+    parts = [_moved(x, d) for x, d in zip(xs, dims)]
+    sizes = [_aligned(p.numel() * p.element_size()) for p in parts]
+    buf = torch.empty(sum(sizes), dtype=torch.uint8, device=xs[0].device)
+    off = 0
+    for p, n in zip(parts, sizes):
+        buf[off:off + p.numel() * p.element_size()].copy_(p.reshape(-1).view(torch.uint8))
+        off += n
+    out = torch.empty(w * buf.numel(), dtype=torch.uint8, device=buf.device)
+    dist.all_gather_into_tensor(out, buf, group=group)
+    out = out.view(w, buf.numel())
+    full, off = [], 0
+    for p, d, n in zip(parts, dims, sizes):
+        nb = p.numel() * p.element_size()
+        t = out[:, off:off + nb].contiguous().view(p.dtype)  # (w, numel) of the leaf's type
+        t = t.reshape(w * p.shape[0], *p.shape[1:])
+        full.append(t.movedim(0, d).contiguous() if d else t)
+        off += n
+    return full
+
+
+def reduce_scatter_many(xs, dims, group):
+    """The sum over ``group`` of each full ``xs[i]``, of which every rank
+    keeps its tile along ``dims[i]`` (rank order): all leaves in one fp32
+    ``reduce_scatter_tensor``, each cast back to its own type."""
+    w = dist.get_world_size(group)
+    parts = [_moved(x, d) for x, d in zip(xs, dims)]
+    cols = [p.numel() // w for p in parts]
+    buf = torch.empty(w, sum(cols), dtype=torch.float32, device=xs[0].device)
+    off = 0
+    for p, n in zip(parts, cols):
+        buf[:, off:off + n].copy_(p.reshape(w, n))
+        off += n
+    out = torch.empty(sum(cols), dtype=torch.float32, device=buf.device)
+    dist.reduce_scatter_tensor(out, buf.reshape(-1), group=group)
+    del buf
+    local, off = [], 0
+    for p, x, d, n in zip(parts, xs, dims, cols):
+        t = out[off:off + n].reshape(p.shape[0] // w, *p.shape[1:])
+        local.append(t.movedim(0, d).to(x.dtype).contiguous())
+        off += n
+    return local
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Tiled all-gather of ``x`` along ``dim``."""
+    return all_gather_many([x], [dim], group)[0]
+
+
+def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Tiled sum of ``x`` over ``group`` along ``dim``."""
+    return reduce_scatter_many([x], [dim], group)[0]
+
+
+class GatherShard(torch.autograd.Function):
+    """``GatherShard.apply(group, dims, *shards)`` -> the full leaves (one
+    all-gather); the backward reduce-scatters their gradients (one sum over
+    ``group``), so each rank receives the summed gradient of its own shard."""
+
+    @staticmethod
+    def forward(ctx, group, dims, *shards):
+        ctx.group, ctx.dims = group, dims
+        return tuple(all_gather_many(shards, dims, group))
+
+    @staticmethod
+    def backward(ctx, *grads):  # an unused output's gradient arrives as zeros
+        return (None, None, *reduce_scatter_many(grads, ctx.dims, ctx.group))
 
 
 def masked_update(committed: torch.Tensor, new_tree: Any, old_tree: Any) -> Any:

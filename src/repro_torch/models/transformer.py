@@ -195,18 +195,27 @@ def apply_stack(
     caches: Optional[Params] = None,
     cache_pos: Optional[int] = None,
     train: bool = False,
+    gather_fn=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Optional[Params]]:
     """Runs every layer group in order: (x, aux, caches). aux sums the MoE
     blocks' aux losses over the layers (empty for a dense stack or a cached
     call). Caches are updated in place (each group's slice of the stacked
     cache is a view), so the returned caches are the ones passed in.
     ``train`` rematerialises each group per ``cfg.remat`` (uncached calls
-    only)."""
+    only).
+
+    gather_fn (optional): FSDP weight streaming. It maps a group's parameter
+    subtree (this rank's shards) to the full weights INSIDE the group body,
+    so inside the rematerialised region: only one group of full weights is
+    live at a time (ZeRO-3), the backward's recompute gathers again, and the
+    gather's backward reduce-scatters the group's gradients."""
     sig = period_signature(cfg)
     unbound = _map(lambda a: a.unbind(0), stack_params)
 
     def group_body(gp, x, g):
         aux: Dict[str, torch.Tensor] = {}
+        if gather_fn is not None:
+            gp = gather_fn(gp)
         for j, (kind, is_moe) in enumerate(sig):
             gc = None if caches is None else _map(lambda a: a[g], caches[f"b{j}"])
             x, a, new = apply_block(cfg, kind, is_moe, gp[f"b{j}"], x, positions=positions,

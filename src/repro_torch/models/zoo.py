@@ -57,6 +57,7 @@ class Model(nn.Module):
         self.dtype = dtype
         self.device = resolve(device)
         self.tree: _Tree | None = None
+        self._shapes: Params | None = None
 
     # ------------------------------------------------------------------ init
 
@@ -65,12 +66,26 @@ class Model(nn.Module):
         device), with repro's distributions; the model keeps them."""
         if gen.device.type != self.device.type:
             raise ValueError(f"generator on {gen.device}, model on {self.device}")
-        params = {
+        return self.load(self._init_tree(gen))
+
+    def _init_tree(self, gen: torch.Generator) -> Params:
+        return {
             "embed": L.init_embedding(self.cfg, gen, self.dtype),
             "stack": T.init_stack(self.cfg, gen, self.dtype),
-            "final_norm": L.init_norm(self.cfg, self.cfg.d_model, self.device),
+            "final_norm": L.init_norm(self.cfg, self.cfg.d_model, gen.device),
         }
-        return self.load(params)
+
+    def param_shapes(self) -> Params:
+        """The parameter tree as fake tensors (shapes and types, no memory
+        and no draw from any generator): ``jax.eval_shape(model.init)``.
+        Made once per model."""
+        if self._shapes is None:
+            from torch._subclasses.fake_tensor import FakeTensorMode
+
+            gen = torch.Generator(device=self.device)
+            with FakeTensorMode():
+                self._shapes = self._init_tree(gen)
+        return self._shapes
 
     def load(self, params: Params) -> Params:
         """Takes ownership of ``params`` (e.g. from ``convert.params_from_numpy``)."""
@@ -103,22 +118,24 @@ class Model(nn.Module):
 
     # -------------------------------------------------------------- forward
 
-    def forward(self, params: Params, batch: Dict[str, torch.Tensor], train: bool = False
-                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def forward(self, params: Params, batch: Dict[str, torch.Tensor], train: bool = False,
+                gather_fn=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(logits, aux): aux sums the MoE aux losses over the layers, and
-        is 0 for each term a stack does not produce (a dense stack)."""
+        is 0 for each term a stack does not produce (a dense stack).
+        ``gather_fn``: FSDP weight streaming (``transformer.apply_stack``)."""
         h = self._embed(params, batch)
-        h, aux, _ = T.apply_stack(self.cfg, params["stack"], h, train=train)
+        h, aux, _ = T.apply_stack(self.cfg, params["stack"], h, train=train,
+                                  gather_fn=gather_fn)
         h = L.apply_norm(self.cfg, params["final_norm"], h)
         aux = {k: aux[k] if k in aux else torch.zeros((), device=h.device)
                for k in T.AUX_KEYS}
         return self._head(params, h), aux
 
-    def loss(self, params: Params, batch: Dict[str, torch.Tensor]
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor], gather_fn=None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Mean next-token cross entropy in fp32 (over ``loss_mask`` when
         given) plus the aux losses: ``repro.models.zoo.Model.loss``."""
-        logits, aux = self.forward(params, batch, train=True)
+        logits, aux = self.forward(params, batch, train=True, gather_fn=gather_fn)
         labels = batch["labels"].long()
         lf = torch.log_softmax(logits.float(), dim=-1)
         nll = -torch.gather(lf, -1, labels[..., None])[..., 0]

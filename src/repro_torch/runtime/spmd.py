@@ -1,96 +1,199 @@
-"""The train step of the port: data parallelism over a ``torch.distributed``
-process group with the Fast Raft commit barrier in the step. Port of
-``repro/runtime/spmd.py::build_train_step`` without FSDP and TP (those are
-ROADMAP queue A8): every rank holds the whole state, so every gradient leaf
-is a "plain" leaf of the one fused reduction.
+"""The train step of the port: the data plane on a ``(pod, data, model)``
+mesh (``launch/mesh.py``) with the Fast Raft commit barrier in the step.
+Port of ``repro/runtime/spmd.py::build_train_step``, where each rank is one
+data-parallel replica and holds its shards of the state:
 
-  1. local grad:   each rank differentiates its own microbatch loss with
-                   ``torch.autograd.grad`` over the detached parameter
-                   leaves (JAX's functional ``value_and_grad``).
-  2. vote:         finite loss and gradients, and a gradient norm under
-                   ``vote_max_norm``.
-  3. reduction:    the gated gradient leaves, the gated loss metrics and the
-                   vote ride ONE ``all_reduce`` (``collective.voted_psum``,
-                   the fast track); ``track="classic"`` instead runs the
-                   gather + verdict vote rounds and then the sums.
-  4. quorum gate:  the AdamW update applies on a ceil(3M/4) commit of
-                   finite reduced gradients; otherwise every rank rolls the
-                   step back. The gate blends through fp32 as new * c +
-                   old * (1 - c), and ``opt.step`` advances by c.
+  1. FSDP:         every large leaf is sharded over "data" on its FSDP dim
+                   (``runtime/sharding.py``, ZeRO-3). ``fsdp_stream=True``
+                   gathers the leaves outside the stack up front and each
+                   layer group's weights inside the group body
+                   (``transformer.apply_stack``'s ``gather_fn``, inside the
+                   remat region), so one group of full weights is live at a
+                   time; the gather's backward (``collective.GatherShard``)
+                   reduce-scatters the group's gradients. False gathers
+                   the whole tree up front.
+  2. local grad:   each rank differentiates its own microbatch loss with
+                   ``torch.autograd.grad`` over the detached leaves (JAX's
+                   functional ``value_and_grad``).
+  3. vote:         finite loss and pre-reduction gradients, with a norm under
+                   ``vote_max_norm``. Pre-reduction means the leaves outside
+                   the stack when streaming (the stack's FSDP gradients are
+                   already summed by then, and a poisoned replica there is
+                   caught by the global finiteness check, which rolls the
+                   step back), every leaf otherwise.
+  4. reduction:    every leaf not already reduced is gated by the vote
+                   (nan_to_num, times the vote). The leaves with no FSDP dim,
+                   the loss metrics and the vote ride ONE ``all_reduce``
+                   over the data-parallel ranks (``collective.voted_psum``,
+                   the fast track; ``track="classic"`` runs the gather +
+                   verdict rounds and a sum per leaf). The FSDP leaves are
+                   reduce-scattered over "data" (unless the streamed gather
+                   did it) and cross "pod" by a sum, or with
+                   ``compress_pod`` as int8 plus one fp32 scale per leaf
+                   through an all-gather over "pod", with error feedback
+                   (``optim/compression.py``).
+  5. quorum gate:  the AdamW update of the local shards applies on a
+                   ceil(3M/4) commit of finite reduced gradients (checked on
+                   every shard of the data group); otherwise every rank
+                   rolls the step back, and ``opt.step`` advances by the
+                   commit. The gate selects new or old; ``repro`` blends
+                   new * c + old * (1 - c) in fp32, the same values except
+                   where a rolled-back update is NaN (ROADMAP C). The
+                   error-feedback residual takes its new value whether or
+                   not the step commits, as in ``repro``.
 
-The step updates the state it is given in place, leaf by leaf (JAX donates
-the state buffers), and returns it.
+The step takes this rank's shard of the global batch (``Mesh.batch_index``)
+and updates the state it is given in place, leaf by leaf (JAX donates the
+state buffers), and returns it. Tensor parallelism over "model" is not
+ported: a mesh whose "model" axis is larger than 1 raises.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.core.collective import (classic_track_commit, fast_quorum_size, psum,
+from repro_torch.core.collective import (GatherShard, all_gather_many, classic_track_commit,
+                                         fast_quorum_size, psum, reduce_scatter_many,
                                          voted_psum)
-from repro_torch.optim import adamw
-from repro_torch.tree import leaves, unflatten
+from repro_torch.optim import adamw, compression
+from repro_torch.runtime import sharding as shd
+from repro_torch.tree import leaves, leaves_with_paths, tree_map, unflatten
 
 Params = Any
 
 
 class TrainState(NamedTuple):
-    """repro's TrainState without ``ef_residual`` (the int8 error feedback
-    of the cross-pod hop, queue A8), which is None there unless that hop is
-    on and then writes nothing to a checkpoint."""
     params: Params
     opt: adamw.OptState
+    ef_residual: Optional[Params] = None  # error feedback (compress_pod only)
 
 
-def make_train_state(model, opt_cfg: adamw.AdamWConfig, gen: torch.Generator) -> TrainState:
+def _check_mesh(mesh) -> None:
+    if shd.mesh_axis_size(mesh, "model") > 1:
+        raise ValueError(
+            f"mesh {mesh.shape}: tensor parallelism over 'model' is not ported yet (a later "
+            "slice of the port); train on a mesh whose 'model' axis has size 1")
+
+
+def state_specs(model, opt_cfg: adamw.AdamWConfig, mesh, compress_pod: bool = False) -> TrainState:
+    """The placements of the state's leaves: a ``TrainState`` of spec trees."""
+    p_specs = shd.tree_param_specs(model.param_shapes(), mesh)
+    opt_specs = adamw.OptState(m=p_specs, v=p_specs,
+                               master=p_specs if opt_cfg.master_weights else None,
+                               step=shd.P())
+    return TrainState(p_specs, opt_specs, p_specs if compress_pod else None)
+
+
+def make_train_state(model, opt_cfg: adamw.AdamWConfig, gen: torch.Generator,
+                     compress_pod: bool = False, mesh=None) -> TrainState:
+    """Initialises the parameters from ``gen`` (every rank draws the same
+    full tree) and, on a mesh, keeps this rank's shard of each leaf; the
+    model then holds the shards. The optimizer state and the residual are
+    made from the shards."""
     params = model.init(gen)
-    return TrainState(params, adamw.init(opt_cfg, params))
+    if mesh is not None:
+        specs = shd.tree_param_specs(params, mesh)
+        params = model.load(tree_map(lambda p, s: shd.shard_leaf(p, s, mesh), params, specs))
+    ef = compression.init_residual(params) if compress_pod else None
+    return TrainState(params, adamw.init(opt_cfg, params), ef)
 
 
-def one_rank_group():
-    """The default process group of a world of one rank, made on first use
-    from an in-process store (no network): NCCL for CUDA tensors and gloo
-    for CPU ones. Its collectives run like any group's."""
-    if not dist.is_initialized():
-        backend = "cpu:gloo,cuda:nccl" if torch.cuda.is_available() else "gloo"
-        dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
-    if dist.get_world_size() != 1:
-        raise ValueError("the default process group has several ranks: pass it explicitly")
-    return dist.group.WORLD
+def flat_specs(model, mesh) -> Dict[str, shd.P]:
+    """Leaf path ("stack/b0/mixer/wq") -> spec, from the full shapes."""
+    specs = shd.tree_param_specs(model.param_shapes(), mesh)
+    return {shd.path_str(p): s for p, s in leaves_with_paths(specs)}
+
+
+def make_gather_fn(stack_specs: Dict[str, shd.P], group) -> Callable[[Params], Params]:
+    """The per-group FSDP gather for ``transformer.apply_stack``. The specs
+    are those of the STACKED leaves (keyed by their path under "stack");
+    inside the group body the group dim is gone, so each leaf's gather dim
+    shifts down by one. All leaves of a group with an FSDP dim move in one
+    ``GatherShard`` call."""
+
+    def gather_group(gp: Params) -> Params:
+        items = leaves_with_paths(gp)
+        idx, dims = [], []
+        for i, (path, _) in enumerate(items):
+            d = shd.fsdp_dim(shd.P(*stack_specs[shd.path_str(path)][1:]))
+            if d is not None:
+                idx.append(i)
+                dims.append(d)
+        out = [leaf for _, leaf in items]
+        if idx:
+            for i, full in zip(idx, GatherShard.apply(group, tuple(dims), *(out[i] for i in idx))):
+                out[i] = full
+        return unflatten(gp, out)
+
+    return gather_group
 
 
 def build_train_step(
     model,
     opt_cfg: adamw.AdamWConfig,
-    group,
+    mesh,
     track: str = "fast",
+    compress_pod: bool = False,
     vote_max_norm: float = 1e4,
+    fsdp_stream: bool = True,
 ) -> Callable[[TrainState, Dict[str, torch.Tensor]], Tuple[TrainState, Dict[str, torch.Tensor]]]:
-    """step_fn(state, batch) -> (state, metrics), metrics as 0-dim tensors:
-    loss, grad_norm, n_yes, committed, step, ce and the moe_* aux terms."""
+    """step_fn(state, local_batch) -> (state, metrics), metrics as 0-dim
+    tensors: loss, grad_norm, n_yes, committed, step, ce and the moe_* aux
+    terms. ``state`` holds this rank's shards (``make_train_state(...,
+    mesh=mesh)``); with ``compress_pod`` it carries ``ef_residual``."""
     if track not in ("fast", "classic"):
         raise ValueError(f"unknown track {track!r}")
+    _check_mesh(mesh)
+    dp_axes = shd.batch_axes(mesh)
+    group = mesh.batch_group()
     fq = fast_quorum_size(dist.get_world_size(group))
+    data_group = mesh.group("data") if "data" in dp_axes else None
+    pod_group = mesh.group("pod") if "pod" in dp_axes else None
+    spec_of = flat_specs(model, mesh)
+    stack_specs = {k[len("stack/"):]: s for k, s in spec_of.items() if k.startswith("stack/")}
+    gather_fn = make_gather_fn(stack_specs, data_group) if fsdp_stream else None
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         params = state.params
-        diff = [p.detach().requires_grad_(True) for p in leaves(params)]
-        loss, metrics = model.loss(unflatten(params, diff), batch)
+        items = leaves_with_paths(params)
+        specs = [spec_of[shd.path_str(p)] for p, _ in items]
+        dims = [shd.fsdp_dim(s) for s in specs]
+        in_stack = [p[0] == "stack" for p, _ in items]
+        # Leaves gathered up front: those outside the stack when streaming,
+        # every leaf otherwise.
+        upfront = [d is not None and not (fsdp_stream and s) for d, s in zip(dims, in_stack)]
+        local = [leaf for _, leaf in items]
+        full = list(local)
+        gi = [i for i, u in enumerate(upfront) if u]
+        if gi:
+            with torch.no_grad():
+                for i, t in zip(gi, all_gather_many([local[i] for i in gi],
+                                                    [dims[i] for i in gi], data_group)):
+                    full[i] = t
+        diff = [p.detach().requires_grad_(True) for p in full]
+        del full
+        loss, metrics = model.loss(unflatten(params, diff), batch, gather_fn=gather_fn)
         grads = torch.autograd.grad(loss, diff, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, diff)]
         del diff
 
         with torch.no_grad():
             loss = loss.detach()
-            # --- Fast Raft vote: this replica's local signals.
+            # Streamed stack leaves with an FSDP dim come back reduce-scattered
+            # over "data" by the gather's backward; every other gradient is
+            # this replica's own, full-shaped.
+            already = [fsdp_stream and s and d is not None for s, d in zip(in_stack, dims)]
+            # --- Fast Raft vote on the pre-reduction leaves.
+            pre = [g for g, s in zip(grads, in_stack) if not (fsdp_stream and s)]
             finite = torch.isfinite(loss)
             sq = torch.zeros((), dtype=torch.float32, device=loss.device)
-            for g in grads:
+            for g in pre:
                 finite = finite & torch.isfinite(g).all()
                 sq = sq + torch.sum(torch.square(g.float()))
             vote = (finite & (torch.sqrt(sq) < vote_max_norm)).float()
+            del pre
 
             if track == "classic":
                 # Two dedicated vote rounds before the reduction; the verdict
@@ -100,43 +203,82 @@ def build_train_step(
 
             # A replica that voted 0 contributes exactly nothing (nan_to_num
             # first: NaN * 0 is NaN). Gated in place, one leaf at a time.
-            for g in grads:
-                g.copy_(torch.nan_to_num(g.float()) * vote)
-            local = {"grads": unflatten(params, grads),
-                     "metrics": {k: torch.nan_to_num(v.detach().float()) * vote
-                                 for k, v in {"loss": loss, **metrics}.items()}}
-            del grads
+            for g, a in zip(grads, already):
+                if not a:
+                    g.copy_(torch.nan_to_num(g.float()) * vote)
+
+            # Leaves with no FSDP dim, the loss metrics and the vote: one sum.
+            plain = [i for i, d in enumerate(dims) if d is None]
+            packed = {"grads": {str(i): grads[i] for i in plain},
+                      "metrics": {k: torch.nan_to_num(v.detach().float()) * vote
+                                  for k, v in {"loss": loss, **metrics}.items()}}
             if track == "fast":
-                summed, n_yes, committed = voted_psum(local, vote, group)
+                summed, n_yes, committed = voted_psum(packed, vote, group)
             else:
-                summed = psum(local, group)
-            del local
+                summed = psum(packed, group)
+            del packed
+            red: List[Optional[torch.Tensor]] = [None] * len(grads)
+            for i in plain:
+                red[i] = summed["grads"][str(i)]
+
+            # FSDP leaves: reduce-scatter over "data" unless streamed, then
+            # the cross-pod hop.
+            fsdp = [i for i, d in enumerate(dims) if d is not None]
+            scatter = [i for i in fsdp if not already[i]]
+            if scatter:
+                for i, t in zip(scatter, reduce_scatter_many([grads[i] for i in scatter],
+                                                             [dims[i] for i in scatter],
+                                                             data_group)):
+                    grads[i] = t
+            if fsdp and pod_group is not None:
+                gs = [grads[i] for i in fsdp]
+                if compress_pod and state.ef_residual is not None:
+                    ef = leaves(state.ef_residual)
+                    gs = _pod_hop_compressed(gs, [ef[i] for i in fsdp], pod_group)
+                else:
+                    gs = _pod_hop(gs, pod_group)
+                for i, t in zip(fsdp, gs):
+                    grads[i] = t
+            for i in fsdp:
+                red[i] = grads[i]
+            del grads
+
             denom = torch.clamp(n_yes, min=1.0)
-            grads_r = summed["grads"]
-            for g in leaves(grads_r):
+            for g in red:
                 g.div_(denom.to(g.dtype))
 
-            # Rollback condition: quorum AND finite reduced gradients.
-            all_finite = torch.ones((), dtype=torch.bool, device=loss.device)
-            norm_sq = torch.zeros((), dtype=torch.float32, device=loss.device)
-            for g in leaves(grads_r):
-                all_finite = all_finite & torch.isfinite(g).all()
-                norm_sq = norm_sq + torch.sum(torch.square(g.float()))
-            committed = committed & all_finite
-            grad_norm = torch.sqrt(norm_sq)
+            # Rollback condition: quorum AND finite reduced gradients on every
+            # shard. The global norm adds the FSDP shards' squares over "data".
+            # (Without FSDP leaves every leaf is the same on every rank.)
+            repl_sq = torch.zeros((), dtype=torch.float32, device=loss.device)
+            shard = torch.zeros(2, dtype=torch.float32, device=loss.device)  # (sq, non-finite)
+            for g, d in zip(red, dims):
+                gs = torch.sum(torch.square(g.float()))
+                if d is None:
+                    repl_sq = repl_sq + gs
+                else:
+                    shard[0] += gs
+                shard[1] += (~torch.isfinite(g)).any().float()
+            if fsdp:
+                dist.all_reduce(shard, group=data_group if data_group is not None else group)
+            committed = committed & (shard[1] == 0)
+            grad_norm = torch.sqrt(repl_sq + shard[0])
 
-            # --- AdamW, gated by the commit, written back leaf by leaf.
-            c = committed.float()
-
+            # --- AdamW on the local shards, gated by the commit, written back
+            # leaf by leaf. repro blends new * c + old * (1 - c) in fp32,
+            # which a select equals for finite values; where a rolled-back
+            # update is not finite (a poisoned replica's streamed gradients)
+            # the blend would write NaN and the select keeps the old value.
             def gate(new, old):
-                old.copy_((new.float() * c + old.float() * (1 - c)).to(old.dtype))
+                old.copy_(torch.where(committed, new.to(old.dtype), old))
 
             opt = state.opt
-            n = len(leaves(params))
+            n = len(local)
             masters = leaves(opt.master) if opt.master is not None else [None] * n
-            updates = adamw.update_leaves(opt_cfg, grads_r, opt, params, grad_norm=grad_norm)
+            updates = adamw.update_leaves(opt_cfg, unflatten(params, red), opt, params,
+                                          grad_norm=grad_norm)
             for (m_new, v_new, p32_new), p, m, v, master in zip(
-                    updates, leaves(params), leaves(opt.m), leaves(opt.v), masters):
+                    updates, local, leaves(opt.m), leaves(opt.v), masters):
                 gate(p32_new.to(p.dtype), p)
                 gate(m_new, m)
                 gate(v_new, v)
@@ -153,3 +295,35 @@ def build_train_step(
         return state, out
 
     return step
+
+
+def _pod_hop(gs: List[torch.Tensor], pod_group) -> List[torch.Tensor]:
+    """The sum over "pod" of each leaf, in one fp32 ``all_reduce``."""
+    flat = torch.cat([g.reshape(-1).float() for g in gs])
+    dist.all_reduce(flat, group=pod_group)
+    out, off = [], 0
+    for g in gs:
+        out.append(flat[off:off + g.numel()].reshape(g.shape).to(g.dtype))
+        off += g.numel()
+    return out
+
+
+def _pod_hop_compressed(gs: List[torch.Tensor], ef: List[torch.Tensor], pod_group
+                        ) -> List[torch.Tensor]:
+    """The int8 hop: each leaf plus its residual quantized with one fp32
+    scale, every pod's int8 leaves and scales gathered in one all-gather,
+    summed in fp32. The residuals take their new values in place."""
+    qs, scales = [], []
+    for g, r in zip(gs, ef):
+        q, scale, new_r = compression.quantize_leaf(g, r)
+        r.copy_(new_r)
+        qs.append(q)
+        scales.append(scale.reshape(1))
+    got = all_gather_many(qs + scales, [0] * (2 * len(qs)), pod_group)
+    n_pod = dist.get_world_size(pod_group)
+    out = []
+    for g, q_all, s_all in zip(gs, got[:len(qs)], got[len(qs):]):
+        q_all = q_all.reshape(n_pod, *g.shape)
+        out.append(torch.sum(q_all.float() * s_all.reshape((-1,) + (1,) * g.ndim), dim=0)
+                   .to(g.dtype))
+    return out

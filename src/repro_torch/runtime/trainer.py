@@ -7,10 +7,15 @@ consensus-committed checkpoints + straggler reports. ``train()`` is
 restartable: it restores the newest COMMITTED checkpoint and resumes from
 its step with the data pipeline re-addressed.
 
-Data parallelism runs over a ``torch.distributed`` process group
-(``TrainerConfig.group``; by default a one-rank group): rank r of M takes
-shard r of the global batch. The device is explicit (``"cuda"`` by default)
-and there is no fallback to the CPU.
+Data parallelism runs over a ``(pod, data, model)`` mesh (``launch/mesh.py``;
+by default the (1, 1) host mesh of one process). Each rank holds its FSDP
+shards of the state (``runtime/spmd.py``) and takes shard p * D + d of the
+global batch (``Mesh.batch_index``, as ``P(("pod", "data"))`` splits it).
+Checkpoints keep ``repro``'s format of full leaves: a save gathers one leaf
+at a time and rank 0 writes it; a restore reads the full leaves and keeps
+this rank's shards, so a checkpoint written on one mesh restores on another.
+The device is explicit (``"cuda"`` by default) and there is no fallback to
+the CPU.
 """
 from __future__ import annotations
 
@@ -26,8 +31,10 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import ArchConfig
 from repro_torch.data.pipeline import DataConfig, Prefetcher, SyntheticLM
 from repro_torch.device import resolve
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import zoo
 from repro_torch.optim import adamw
+from repro_torch.runtime import sharding as shd
 from repro_torch.runtime import spmd
 from repro_torch.runtime.controlplane import ControlPlane
 
@@ -41,28 +48,28 @@ class TrainerConfig:
     seq_len: int = 64
     seed: int = 0
     track: str = "fast"            # fast | classic (in-step consensus)
+    compress_pod: bool = False     # int8 + error feedback on the cross-pod hop
     ckpt_dir: Optional[str] = None
     ckpt_every: int = 0            # 0 = only final
     keep_last: int = 3
     straggler_ms: float = 1e9      # step-time threshold for reports
     dtype: Any = torch.float32     # as repro's default; bf16 for full-width runs
     device: str = "cuda"
-    group: Any = None              # process group; None = a one-rank group
 
 
 class Trainer:
-    def __init__(self, cfg: TrainerConfig, control: Optional[ControlPlane] = None,
+    def __init__(self, cfg: TrainerConfig, mesh=None, control: Optional[ControlPlane] = None,
                  host_id: str = "host0"):
         self.cfg = cfg
         self.device = resolve(cfg.device)
-        self.group = cfg.group if cfg.group is not None else spmd.one_rank_group()
-        self.rank = dist.get_rank(self.group)
-        self.world = dist.get_world_size(self.group)
+        self.mesh = mesh if mesh is not None else make_host_mesh(self.device.type)
         self.control = control
         self.host_id = host_id
         self.model = zoo.build(cfg.arch, dtype=cfg.dtype, device=self.device)
-        self.step_fn = spmd.build_train_step(self.model, cfg.opt, self.group, track=cfg.track)
-        # Every rank restores; rank 0 writes (every rank holds the whole state).
+        self.step_fn = spmd.build_train_step(self.model, cfg.opt, self.mesh, track=cfg.track,
+                                             compress_pod=cfg.compress_pod)
+        self.spec_of = spmd.flat_specs(self.model, self.mesh)
+        # Every rank restores and takes part in a save's gathers; rank 0 writes.
         self.ckpt = (
             CheckpointManager(
                 cfg.ckpt_dir,
@@ -72,7 +79,7 @@ class Trainer:
             if cfg.ckpt_dir
             else None
         )
-        self.writes_ckpt = self.ckpt is not None and self.rank == 0
+        self.writes_ckpt = self.ckpt is not None and dist.get_rank() == 0
         self.data_cfg = DataConfig(
             vocab_size=cfg.arch.vocab_size, seq_len=cfg.seq_len,
             global_batch=cfg.global_batch, seed=cfg.seed,
@@ -85,23 +92,43 @@ class Trainer:
 
     def init_state(self) -> spmd.TrainState:
         gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
-        return spmd.make_train_state(self.model, self.cfg.opt, gen)
+        return spmd.make_train_state(self.model, self.cfg.opt, gen, self.cfg.compress_pod,
+                                     mesh=self.mesh)
 
     def restore_or_init(self) -> (int, spmd.TrainState):
         state = self.init_state()
         if self.ckpt is not None and self.ckpt.latest_step() is not None:
-            step, trees = self.ckpt.restore({"state": state})
+            step, trees = self.ckpt.restore({"state": state}, local_leaf=self._local_leaf)
             state = trees["state"]
             self.model.load(state.params)
             return step, state
         return 0, state
+
+    def _spec(self, path) -> Optional[shd.P]:
+        """The spec of a state leaf (``.params/...``, ``.opt/.m/...``,
+        ``.ef_residual/...``): its parameter's; None for ``.opt/.step``."""
+        return self.spec_of.get("/".join(k for k in path if not k.startswith(".")))
+
+    def _full_leaf(self, path, leaf):
+        spec = self._spec(path)
+        return leaf if spec is None else shd.unshard_leaf(leaf, spec, self.mesh)
+
+    def _local_leaf(self, path, full):
+        spec = self._spec(path)
+        return full if spec is None else shd.shard_leaf(full, spec, self.mesh)
+
+    def save(self, step: int, state: spmd.TrainState, async_: bool = True) -> None:
+        """Every rank calls it (the gathers); rank 0 writes."""
+        self.ckpt.save(step, {"state": state}, async_=async_, full_leaf=self._full_leaf,
+                       write=self.writes_ckpt)
 
     # ----------------------------------------------------------------- train
 
     def train(self) -> List[Dict[str, float]]:
         cfg = self.cfg
         start_step, state = self.restore_or_init()
-        data = SyntheticLM(self.data_cfg, shard_id=self.rank, n_shards=self.world,
+        data = SyntheticLM(self.data_cfg, shard_id=self.mesh.batch_index(),
+                           n_shards=dist.get_world_size(self.mesh.batch_group()),
                            start_step=start_step)
         it = Prefetcher(data, depth=2)
         logs: List[Dict[str, float]] = []
@@ -115,10 +142,10 @@ class Trainer:
             logs.append(m)
             if self.control is not None and m["wall_ms"] > cfg.straggler_ms:
                 self.control.report_straggler(self.host_id, i)
-            if self.writes_ckpt and cfg.ckpt_every and (i + 1) % cfg.ckpt_every == 0:
-                self.ckpt.save(i + 1, {"state": state})
-        if self.writes_ckpt:
-            self.ckpt.save(cfg.steps, {"state": state}, async_=False)
+            if self.ckpt is not None and cfg.ckpt_every and (i + 1) % cfg.ckpt_every == 0:
+                self.save(i + 1, state)
+        if self.ckpt is not None:
+            self.save(cfg.steps, state, async_=False)
             self.ckpt.wait()
         return logs
 

@@ -89,11 +89,11 @@ def test_collectives_on_eight_gloo_ranks(tmp_path):
 
 
 def test_one_rank_group_runs_its_collectives():
-    """A world of one rank is a real one-rank group: the vote is counted by
-    a real all_reduce, and fq(1) = 1."""
-    from repro_torch.runtime.spmd import one_rank_group
+    """The host mesh's world of one rank is a real one-rank group: the vote
+    is counted by a real all_reduce, and fq(1) = 1."""
+    from repro_torch.launch.mesh import make_host_mesh
 
-    group = one_rank_group()
+    group = make_host_mesh("cpu").batch_group()
     n_yes, committed = C.fast_track_commit(torch.tensor(1.0), group)
     assert int(n_yes) == 1 and bool(committed)
     tree, n_yes, committed = C.voted_psum({"g": torch.arange(3.0)}, torch.tensor(0.0), group)

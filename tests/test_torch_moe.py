@@ -32,6 +32,7 @@ from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.models import moe as M  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.models import zoo  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.runtime import spmd  # noqa: E402
@@ -334,7 +335,7 @@ def test_train_step_matches_jax(arch):
     jocfg, ocfg = jadamw.AdamWConfig(**opt), adamw.AdamWConfig(**opt)
     mesh = jax.make_mesh((1, 1), ("data", "model"))
     jstep, _, _ = jspmd.build_train_step(jmodel, jocfg, mesh, donate=False)
-    step = spmd.build_train_step(model, ocfg, spmd.one_rank_group())
+    step = spmd.build_train_step(model, ocfg, make_host_mesh("cpu"))
     jstate = jspmd.make_train_state(jmodel, jocfg, jax.random.PRNGKey(2))
     state = spmd.TrainState(params, adamw.init(ocfg, params))
     for i in range(2):

@@ -23,6 +23,7 @@ from repro_torch.configs import registry  # noqa: E402
 from repro_torch.convert import params_from_numpy, params_to_numpy  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.models import zoo  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.runtime import spmd  # noqa: E402
@@ -64,7 +65,7 @@ def check_train_step(arch):
     jocfg, ocfg = jadamw.AdamWConfig(**opt), adamw.AdamWConfig(**opt)
     mesh = jax.make_mesh((1, 1), ("data", "model"))
     jstep, _, _ = jspmd.build_train_step(jmodel, jocfg, mesh, donate=False)
-    step = spmd.build_train_step(model, ocfg, spmd.one_rank_group())
+    step = spmd.build_train_step(model, ocfg, make_host_mesh("cpu"))
     jstate = jspmd.make_train_state(jmodel, jocfg, jax.random.PRNGKey(2))
     state = spmd.TrainState(params, adamw.init(ocfg, params))
     for i in range(2):

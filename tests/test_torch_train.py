@@ -29,12 +29,14 @@ from repro.runtime.trainer import TrainerConfig as JTrainerConfig  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.convert import params_from_numpy, params_to_numpy  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh, make_mesh  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import zoo  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.runtime import sharding as shd  # noqa: E402
 from repro_torch.runtime import spmd  # noqa: E402
 from repro_torch.runtime.trainer import Trainer, TrainerConfig  # noqa: E402
-from repro_torch.tree import leaves_with_paths  # noqa: E402
+from repro_torch.tree import leaves_with_paths, tree_map  # noqa: E402
 
 ARCH = "qwen3-1.7b"
 LOSS_TOL = dict(rtol=2e-4, atol=2e-4)
@@ -191,7 +193,7 @@ def test_train_step_matches_jax(track):
     jmodel, jparams, model, params = _models("dots")
     jocfg, ocfg = jadamw.AdamWConfig(**OPT), adamw.AdamWConfig(**OPT)
     jstep = _jax_step(jmodel, jocfg, track)
-    step = spmd.build_train_step(model, ocfg, spmd.one_rank_group(), track=track)
+    step = spmd.build_train_step(model, ocfg, make_host_mesh("cpu"), track=track)
     jstate = jspmd.make_train_state(jmodel, jocfg, jax.random.PRNGKey(2))
     state = _port_state(params, ocfg)
     for i in range(3):
@@ -216,7 +218,7 @@ def test_rollback_on_nan_matches_jax():
     jmodel, jparams, model, params = _models("dots")
     jocfg, ocfg = jadamw.AdamWConfig(**OPT), adamw.AdamWConfig(**OPT)
     jstep = _jax_step(jmodel, jocfg, "fast")
-    step = spmd.build_train_step(model, ocfg, spmd.one_rank_group())
+    step = spmd.build_train_step(model, ocfg, make_host_mesh("cpu"))
     jb, tb = _batch(model.cfg, step=0)
     jb["loss_mask"] = jb["loss_mask"].at[0, 3].set(jnp.nan)
     tb["loss_mask"][0, 3] = float("nan")
@@ -244,10 +246,17 @@ def _two_rank_main(rank, world, init_file, out_dir):
         cfg = registry.get(ARCH, reduced=True)
         ocfg = adamw.AdamWConfig(**OPT)
         model = zoo.build(cfg, dtype=torch.float32, device="cpu")
-        step = spmd.build_train_step(model, ocfg, dist.group.WORLD)
+        mesh = make_mesh((world, 1), ("data", "model"), "cpu")
+        step = spmd.build_train_step(model, ocfg, mesh)
         data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=16, global_batch=4),
-                           shard_id=rank, n_shards=world)
-        state = spmd.make_train_state(model, ocfg, torch.Generator().manual_seed(0))
+                           shard_id=mesh.batch_index(), n_shards=world)
+        state = spmd.make_train_state(model, ocfg, torch.Generator().manual_seed(0), mesh=mesh)
+        specs = shd.tree_param_specs(model.param_shapes(), mesh)
+
+        def gathered(params):  # the full leaves: each rank holds its FSDP shards
+            return params_to_numpy(tree_map(lambda p, s: shd.unshard_leaf(p, s, mesh),
+                                            params, specs))
+
         out = {}
         for name in ("ok", "poisoned"):
             raw = data.batch_at(0)
@@ -255,19 +264,20 @@ def _two_rank_main(rank, world, init_file, out_dir):
                      for k, v in raw.items()}
             if name == "poisoned" and rank == 1:
                 batch["loss_mask"][0, 0] = float("nan")  # rank 1 votes 0
-            before = params_to_numpy(state.params)
+            before = gathered(state.params)
             state, m = step(state, batch)
             out[name] = {"metrics": {k: float(v) for k, v in m.items()},
-                         "before": before, "after": params_to_numpy(state.params)}
+                         "before": before, "after": gathered(state.params)}
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
 
 
 def test_two_rank_step_agrees_and_rolls_back(tmp_path):
-    """Two gloo ranks, each on its half of the global batch: a committed step
-    leaves identical parameters on both; when one rank votes 0, n_yes = 1 is
-    short of the fast quorum fq(2) = 2 and both ranks roll back."""
+    """Two gloo ranks on a (data=2, model=1) mesh, each on its half of the
+    global batch and holding its FSDP shards: a committed step leaves
+    identical gathered parameters on both; when one rank votes 0, n_yes = 1
+    is short of the fast quorum fq(2) = 2 and both ranks roll back."""
     mp.spawn(_two_rank_main, args=(2, str(tmp_path / "init"), str(tmp_path)), nprocs=2)
     outs = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(2)]
     ok = [o["ok"] for o in outs]
