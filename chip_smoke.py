@@ -88,7 +88,20 @@ a non-zero exit:
      and step exact K1 / K2 / K3 / K5 launches and all-gather /
      reduce-scatter / all_reduce calls; per-rank peak memory, the step
      walls (gloo through host memory: nothing of an NCCL data plane) and
-     the bytes each collective moved.
+     the bytes each collective moved;
+  22. tensor parallelism over "model": four spawned ranks on this card
+     (gloo) (a) hold 2-layer full-width qwen3-1.7b and granite-moe-1b-a400m
+     (fp32) on (data=1, model=4) to one rank on the card: prefill + 2
+     decode logits at atol/rtol 2e-3, no expert choice or capacity-mask
+     entry different; (b) serve both at full depth (bf16; qwen 4 query and
+     2 KV heads of 128 a rank, granite 8 experts a rank and its odd
+     vocabulary whole) as phases 5 / 11, with exact K1 / K4 / K5 launches
+     and all-reduce / all-gather calls and bytes per prefill and decode
+     step, per-rank peak memory and walls, rank 0's in-path K1 / K4 device
+     time, and how many greedy tokens equal the one-rank run's (reported,
+     not gated: bf16 near-ties may flip); (c) train 8-layer qwen3-1.7b
+     (fp32) on (data=2, model=2) for two steps against phase 21's one-rank
+     baseline at its tolerances, with exact launches and collective calls.
 
 The lines before the last are the granite shapes' (D 64) and jamba's
 shapes' kernel timings as one JSON object each, the card's name and power
@@ -694,7 +707,7 @@ def stage_split(kernels, ops, ranges):
     out, kinds = {}, {}
     for name, thread, ks, ms, launches in calls:
         if not ks:
-            fail(f"the profiler put no kernel in a call of {name}")
+            raise ProfileLost(f"the profiler put no kernel in a call of {name}")
         kinds.setdefault((name, thread), []).append(tuple(sorted(ks)))
         total = out.get(name, (0.0, 0))
         out[name] = (total[0] + ms, total[1] + launches)
@@ -803,6 +816,15 @@ def path_parity(dev, arch, phase):
 
 # ------------------------------------------ phases 5-6, 11-12 and 16-18
 
+def serve_prompt(cfg):
+    """8 prompts of 1024 tokens from a seed; request 3 holds 1000 tokens,
+    left-padded with 0."""
+    rng = torch.Generator().manual_seed(3)
+    tokens = torch.randint(1, cfg.vocab_size, (B_SERVE, PROMPT), generator=rng)
+    tokens[3, :PROMPT - 1000] = 0
+    return {"tokens": tokens}
+
+
 def serve(dev, card, cfg, phase, profile_phase):
     """Serves ``cfg`` (bf16, random weights) after a Fast Raft rollout, checks
     the logits and the launch counts, then profiles one prefill and one
@@ -822,10 +844,7 @@ def serve(dev, card, cfg, phase, profile_phase):
     n_params = sum(t.numel() for t in model.buffers())
     log(f"  {n_params / 1e9:.3f} B parameters initialised in {time.perf_counter() - t0:.1f} s")
     prefill_fn, decode_fn = build_serve_fns(model, MAX_LEN, dev)
-    rng = torch.Generator().manual_seed(3)
-    tokens = torch.randint(1, cfg.vocab_size, (B_SERVE, PROMPT), generator=rng)
-    tokens[3, :PROMPT - 1000] = 0  # request 3 holds 1000 tokens, left-padded with 0
-    prompt = {"tokens": tokens}
+    prompt = serve_prompt(cfg)
 
     # Warm-up at the same shapes (cuBLAS picks its kernels).
     generate(prefill_fn, decode_fn, params, prompt, 2, dev)
@@ -857,7 +876,11 @@ def serve(dev, card, cfg, phase, profile_phase):
         f"{t_dec * 1e3 / steps:.3f} ms/step, {steps * B_SERVE / t_dec:.1f} tok/s [{card}]")
     log(f"  sample generation: {out['tokens'][0].tolist()}")
     where_time_goes(prefill_fn, decode_fn, params, prompt, t_pre, t_dec / steps, profile_phase)
+    SERVED_TOKENS[cfg.name] = out["tokens"]
     return counts
+
+
+SERVED_TOKENS = {}  # arch -> the greedy tokens of its one-rank serve run, for phase 22
 
 
 KERNEL_GROUPS = (  # (group, substrings of the CUDA kernel name)
@@ -871,12 +894,28 @@ KERNEL_GROUPS = (  # (group, substrings of the CUDA kernel name)
 )
 
 
-def profile_groups(run):
+class ProfileLost(Exception):
+    """The profiler recorded none of a stage call's kernels."""
+
+
+def profile_groups(run, sessions: int = 1):
     """(device busy ms, kernels, {group: ms}, the five costliest kernels of
     group "other" as (name, ms, launches)) of one call of ``run``. The MoE
     stages' and the recurrent mixers' kernels of group "other" move to
     groups of their own (``stage_split``); the five costliest are listed
-    before that move."""
+    before that move. A call of ``run`` that has no side effects may take
+    up to ``sessions`` profiler sessions: one that lost every kernel of a
+    stage call (the profiler drops records now and then) is run again."""
+    for i in range(sessions):
+        try:
+            return _profile_groups(run)
+        except ProfileLost as e:
+            if i == sessions - 1:
+                fail(str(e))
+            log(f"  ({e} in profiler session {i + 1}; again)")
+
+
+def _profile_groups(run):
     from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
@@ -925,10 +964,12 @@ def where_time_goes(prefill_fn, decode_fn, params, prompt, t_pre, t_step, phase)
     from torch.profiler; the idle share is 1 - busy / the unprofiled wall
     time of the same work measured above (the profiler slows the host)."""
     log(f"phase {phase}: device time by kernel group (torch.profiler)")
-    log_profile("prefill", *profile_groups(lambda: prefill_fn(params, prompt)), t_pre * 1e3)
+    log_profile("prefill", *profile_groups(lambda: prefill_fn(params, prompt), sessions=3),
+                t_pre * 1e3)
     logits, cache = prefill_fn(params, prompt)
     tok = torch.argmax(logits, dim=-1)[:, None]
-    log_profile("decode step", *profile_groups(lambda: decode_fn(params, cache, {"tokens": tok})),
+    log_profile("decode step", *profile_groups(lambda: decode_fn(params, cache, {"tokens": tok}),
+                                               sessions=3),
                 t_step * 1e3)
 
 
@@ -1163,6 +1204,37 @@ DP_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)  # phase 7's
 COLLECTIVES = ("all_gather_into_tensor", "reduce_scatter_tensor", "all_reduce")
 
 
+class CountedCollectives:
+    """While open, counts the calls of the three collectives the port uses
+    and the bytes of their inputs."""
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        self.dist, self.orig = dist, {n: getattr(dist, n) for n in COLLECTIVES}
+        self.reset()
+
+    def reset(self):
+        self.calls = {n: [0, 0] for n in COLLECTIVES}
+
+    def __enter__(self):
+        for n in COLLECTIVES:
+            setattr(self.dist, n, self._wrap(n))
+        return self
+
+    def _wrap(self, name):
+        def call(*args, **kwargs):
+            t = args[1] if name != "all_reduce" else args[0]
+            self.calls[name][0] += 1
+            self.calls[name][1] += t.numel() * t.element_size()
+            return self.orig[name](*args, **kwargs)
+        return call
+
+    def __exit__(self, *exc):
+        for n in COLLECTIVES:
+            setattr(self.dist, n, self.orig[n])
+
+
 def dataplane_collectives(cfg, compress_pod):
     """Collective calls of one streamed train step on (pod=2, data=2) with
     remat: all-gathers: the leaves outside the stack with an FSDP dim, up
@@ -1227,17 +1299,7 @@ def dataplane_rank(rank, world, addr, base_path, out_dir):
     try:
         mesh = make_mesh(*DP_MESH, device_type="cuda")
         r = mesh.batch_index()
-        calls = {n: [0, 0] for n in COLLECTIVES}  # (calls, bytes)
-        orig = {n: getattr(dist, n) for n in COLLECTIVES}
-
-        def counting(name):
-            def call(*args, **kwargs):
-                t = args[1] if name != "all_reduce" else args[0]
-                calls[name][0] += 1
-                calls[name][1] += t.numel() * t.element_size()
-                return orig[name](*args, **kwargs)
-            return call
-
+        counted = CountedCollectives()
         ef_checks = []
         quantize_leaf = compression.quantize_leaf
 
@@ -1262,20 +1324,17 @@ def dataplane_rank(rank, world, addr, base_path, out_dir):
             steps = []
             for i in range(DP_STEPS):
                 batch = dataplane_batch(cfg, i, slice(r, r + 1))
-                for n in COLLECTIVES:
-                    setattr(dist, n, counting(n))
-                    calls[n] = [0, 0]
+                counted.reset()
                 compression.quantize_leaf = checked_quantize
                 ef_checks.clear()
                 ops.reset_launches()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 try:
-                    state, metrics = step_fn(state, batch)
-                    torch.cuda.synchronize()
+                    with counted:
+                        state, metrics = step_fn(state, batch)
+                        torch.cuda.synchronize()
                 finally:
-                    for n in COLLECTIVES:
-                        setattr(dist, n, orig[n])
                     compression.quantize_leaf = quantize_leaf
                 wall = (time.perf_counter() - t0) * 1e3
                 counts = ops.launch_counts()
@@ -1283,7 +1342,7 @@ def dataplane_rank(rank, world, addr, base_path, out_dir):
                     raise AssertionError(f"run {run} step {i}: launches {counts}, want "
                                          f"{train_launches(cfg)}")
                 want = dataplane_collectives(cfg, compress)
-                got = {n: c for n, (c, _) in calls.items()}
+                got = {n: c for n, (c, _) in counted.calls.items()}
                 if got != want:
                     raise AssertionError(f"run {run} step {i}: collective calls {got}, want {want}")
                 if compress:
@@ -1294,7 +1353,7 @@ def dataplane_rank(rank, world, addr, base_path, out_dir):
                         raise AssertionError(f"error feedback off by {worst} of max |g + r|")
                 steps.append({"metrics": {k: float(v) for k, v in metrics.items()},
                               "wall_ms": wall, "launches": counts,
-                              "collectives": {n: list(v) for n, v in calls.items()},
+                              "collectives": {n: list(v) for n, v in counted.calls.items()},
                               "ef_rel_err": max((e / max(t, 1e-30) for e, t, _ in ef_checks),
                                                 default=None),
                               "ef_residual_max": max((m for _, _, m in ef_checks), default=None)})
@@ -1325,19 +1384,12 @@ def dataplane_rank(rank, world, addr, base_path, out_dir):
         dist.destroy_process_group()
 
 
-def dataplane(card):
-    """Phase 21: the data plane on the card. Four ranks (spawned processes,
-    all on cuda:0) over a (pod=2, data=2, model=1) mesh train full-width
-    qwen3-1.7b cut to 8 layers, global batch 4 x 1024 (one sequence a rank):
-    FSDP weights streamed per layer group over "data" on K1 / K2 / K3 / K5,
-    gradients reduce-scattered and carried over "pod". The group is gloo:
-    NCCL refuses two ranks on one device, so every collective goes through
-    host memory, and the walls measure nothing of a multi-GPU NCCL data
-    plane. Returns the ranks' kernel launches, summed."""
-    import socket
+def dataplane_baseline():
+    """The one-rank baseline of phases 21 (a) and 22 (c): two fp32 steps of
+    8-layer qwen3-1.7b on the whole batch, on the card. Returns (its
+    metrics, a directory for the phases' files, the path of its updated
+    parameters there)."""
     import tempfile
-
-    import torch.multiprocessing as mp
 
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.optim import adamw
@@ -1348,7 +1400,6 @@ def dataplane(card):
     log(f"phase 21: data plane, {cfg.name} full width cut to {cfg.n_layers} of 28 layers, "
         f"mesh {dict(zip(DP_MESH[1], DP_MESH[0]))} as 4 gloo ranks on one card, global batch "
         f"{B_TRAIN} x {SEQ_TRAIN}")
-    # (a)'s baseline: one rank, the whole batch, fp32, on the card.
     ocfg = adamw.AdamWConfig(**DP_OPT)
     state = spmd.make_train_state(model, ocfg, torch.Generator(device="cuda").manual_seed(7))
     log(f"  {sum(t.numel() for _, t in leaves_with_paths(state.params)) / 1e9:.3f} B parameters; "
@@ -1363,6 +1414,24 @@ def dataplane(card):
     torch.save({"/".join(p): t.cpu() for p, t in leaves_with_paths(state.params)}, base_path)
     del state, step_fn, model
     torch.cuda.empty_cache()
+    return base_metrics, tmp, base_path
+
+
+def dataplane(card, baseline):
+    """Phase 21: the data plane on the card. Four ranks (spawned processes,
+    all on cuda:0) over a (pod=2, data=2, model=1) mesh train full-width
+    qwen3-1.7b cut to 8 layers, global batch 4 x 1024 (one sequence a rank):
+    FSDP weights streamed per layer group over "data" on K1 / K2 / K3 / K5,
+    gradients reduce-scattered and carried over "pod". The group is gloo:
+    NCCL refuses two ranks on one device, so every collective goes through
+    host memory, and the walls measure nothing of a multi-GPU NCCL data
+    plane. ``baseline`` is ``dataplane_baseline()``'s. Returns the ranks'
+    kernel launches, summed."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    base_metrics, tmp, base_path = baseline
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
@@ -1422,8 +1491,382 @@ def dataplane(card):
                 f"[{card}]")
     log(f"  launches per rank and step as train_launches; collective calls as "
         f"dataplane_collectives; phase 21 launches in all: {total}")
-    shutil.rmtree(tmp)
     return total
+
+
+# ------------------------------------------------------------ phase 22
+
+TP_SERVE_MESH = ((1, 4), ("data", "model"))  # 4 ranks on the one card
+TP_TRAIN_MESH = ((2, 2), ("data", "model"))
+TP_OPS = ("copy_to_model", "reduce_from_model", "gather_from_model", "vocab_parallel_nll")
+TP_PARITY_LEN, TP_PARITY_T = 80, 61
+
+
+def tp_serve_collectives(cfg, vocab_split, rows, tokens):
+    """Collective calls and bytes of one prefill (``tokens`` a row) or
+    decode step (1) on (data=1, model=4), per rank: an fp32 all_reduce of
+    the (rows, tokens, d) partials after the vocab-parallel lookup (when the
+    vocabulary splits) and after each layer's attention and FFN / MoE, and
+    one all-gather of the last position's logits slices (bf16)."""
+    n = int(vocab_split) + 2 * cfg.n_layers
+    gather = rows * cfg.vocab_size // 4 * 2 if vocab_split else 0
+    return ({"reduce_from_model": (n, n * rows * tokens * cfg.d_model * 4),
+             "gather_from_model": (int(vocab_split), gather),
+             "copy_to_model": (0, 0), "vocab_parallel_nll": (0, 0)},
+            {"all_reduce": n, "all_gather_into_tensor": int(vocab_split),
+             "reduce_scatter_tensor": 0})
+
+
+def tp_train_collectives(cfg):
+    """Collective calls of one streamed train step on (data=2, model=2) with
+    remat "dots", per rank. The region operators: reduce_from_model sums the
+    lookup's rows and each layer's attention and FFN partials (1 + 2L), and
+    each attention partial again in the recompute (the FFN's is the group's
+    last: the checkpoint's recompute stops before it); copy_to_model's
+    backward sums dx of each layer's attention and FFN and the head's
+    (2L + 1); the cross entropy takes two. The data plane: phase 21's
+    gathers and reduce-scatters over "data", the fused vote + plain leaves,
+    the FSDP shards' norm over "data", and two sums over "model" (the
+    vote's and the clipping norm's)."""
+    from repro_torch.models.transformer import n_groups
+
+    L, G = cfg.n_layers, n_groups(cfg)
+    tp = {"reduce_from_model": 1 + 3 * L, "copy_to_model": 2 * L + 1,
+          "gather_from_model": 0, "vocab_parallel_nll": 2}
+    return tp, {"all_reduce": sum(tp.values()) + 4, "all_gather_into_tensor": 1 + 2 * G,
+                "reduce_scatter_tensor": G + 1}
+
+
+def tp_parity_tokens(cfg):
+    """Phase 4's two ragged requests: 61 prompt tokens (45 in request 1,
+    left-padded) and 4 more."""
+    rng = torch.Generator().manual_seed(2)
+    tokens = torch.randint(1, cfg.vocab_size, (2, TP_PARITY_T + 4), generator=rng)
+    tokens[1, :TP_PARITY_T - 45] = 0
+    return tokens
+
+
+def tp_parity_run(cfg, prefill_fn, decode_fn, params):
+    """Prefill + 2 decode steps of ``tp_parity_tokens``: (logits (3, B, V)
+    on the host, the routings as (expert_idx, keep) on the host)."""
+    tokens = tp_parity_tokens(cfg)
+    with recorded_routes() as routes:
+        logits, cache = prefill_fn(params, {"tokens": tokens[:, :TP_PARITY_T]})
+        steps = [logits.cpu()]
+        for i in range(2):
+            logits, cache = decode_fn(params, cache,
+                                      {"tokens": tokens[:, TP_PARITY_T + i:TP_PARITY_T + i + 1]})
+            steps.append(logits.cpu())
+    return torch.stack(steps), [(r.expert_idx.cpu(), r.keep.cpu()) for r in routes["cuda"]]
+
+
+def tp_serve_rank(rank, mesh, out):
+    """(a) 2-layer fp32 parity and (b) full-depth bf16 serving of qwen3-1.7b
+    and granite-moe-1b-a400m on this rank of (data=1, model=4)."""
+    from repro_torch.configs import registry
+    from repro_torch.core import collective as C
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import zoo
+    from repro_torch.runtime.serve import build_serve_fns, shard_params
+
+    dev = torch.device("cuda", 0)
+    for arch in (DENSE, MOE):
+        cfg = two_layers(arch)
+        model = zoo.build(cfg, dtype=torch.float32, device=dev)
+        params = shard_params(model, model.init(torch.Generator(device=dev).manual_seed(1)), mesh)
+        fns = build_serve_fns(model, TP_PARITY_LEN, dev, mesh)
+        out[f"a/{arch}"] = tp_parity_run(cfg, *fns, params)
+        del model, params, fns
+        torch.cuda.empty_cache()
+    counted = CountedCollectives()
+    for arch in (DENSE, MOE):
+        cfg = registry.get(arch)
+        model = zoo.build(cfg, dtype=torch.bfloat16, device=dev)
+        params = shard_params(model, model.init(torch.Generator(device=dev).manual_seed(0)), mesh)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        vocab_split = params["embed"]["tok"].shape[0] < cfg.vocab_size
+        prefill_fn, decode_fn = build_serve_fns(model, MAX_LEN, dev, mesh)
+        prompt = serve_prompt(cfg)
+        per_call = []
+
+        def counting(fn):
+            def call(*args):
+                counted.reset()
+                C.reset_tp_counts()
+                result = fn(*args)
+                per_call.append((C.tp_counts(), {n: c for n, (c, _) in counted.calls.items()},
+                                 {n: b for n, (_, b) in counted.calls.items()}))
+                return result
+            return call
+
+        # Warm-up at a short prompt (cuBLAS picks its kernels).
+        generate(prefill_fn, decode_fn, params, {"tokens": prompt["tokens"][:, :64]}, 2, dev)
+        ops.reset_launches()
+        with counted:
+            res = generate(counting(prefill_fn), counting(decode_fn), params, prompt, GEN, dev)
+        launches = ops.launch_counts()
+        steps = GEN - 1
+        want = {"flash_attention": attn_layers(cfg), "flash_attention_dq": 0,
+                "flash_attention_dkv": 0, "decode_attention": attn_layers(cfg) * steps,
+                "rmsnorm": rmsnorms_per_forward(cfg) * GEN}
+        if launches != want:
+            raise AssertionError(f"{arch}: launches {launches}, want {want}")
+        if not res["finite"]:
+            raise AssertionError(f"{arch}: non-finite logits")
+        for i, (tp_calls, calls, nbytes) in enumerate(per_call):
+            tokens = PROMPT if i == 0 else 1
+            want_tp, want_calls = tp_serve_collectives(cfg, vocab_split, B_SERVE, tokens)
+            if tp_calls != want_tp or calls != want_calls:
+                raise AssertionError(f"{arch} call {i}: region operators {tp_calls}, collectives "
+                                     f"{calls}; want {want_tp}, {want_calls}")
+        # K1 and K4 in the path at this rank's heads: one profiled prefill and
+        # decode step (every rank runs them; rank 0 profiles).
+        prof = {}
+        logits, cache = prefill_fn(params, prompt)
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        if rank == 0:  # one session each: the other ranks run each call once
+            for name, run in (("prefill", lambda: prefill_fn(params, prompt)),
+                              ("decode", lambda: decode_fn(params, cache, {"tokens": tok}))):
+                try:
+                    prof[name] = _profile_groups(run)[2]
+                except ProfileLost as e:
+                    log(f"  ({e}: {arch}'s in-path kernel times not measured in this run)")
+        else:
+            prefill_fn(params, prompt)
+            decode_fn(params, cache, {"tokens": tok})
+        torch.cuda.synchronize()
+        out[f"b/{arch}"] = {
+            "launches": launches, "tokens": res["tokens"], "t_prefill": res["t_prefill"],
+            "t_decode": res["t_decode"], "prefill": per_call[0], "decode": per_call[1],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "vocab_split": vocab_split,
+            "profile": prof}
+        del model, params, prefill_fn, decode_fn, logits, cache
+        torch.cuda.empty_cache()
+
+
+def tp_train_rank(rank, mesh, base_path, out):
+    """(c) two fp32 steps of 8-layer qwen3-1.7b on this rank of (data=2,
+    model=2), FSDP streaming on."""
+    from repro_torch.core import collective as C
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime import spmd
+    from repro_torch.tree import leaves_with_paths
+
+    cfg, model = dataplane_model(torch.float32)
+    ocfg = adamw.AdamWConfig(**DP_OPT)
+    torch.cuda.reset_peak_memory_stats()
+    state = spmd.make_train_state(model, ocfg, torch.Generator(device="cuda").manual_seed(7),
+                                  mesh=mesh)
+    step_fn = spmd.build_train_step(model, ocfg, mesh)
+    specs = spmd.flat_specs(model, mesh)
+    r, rows = mesh.batch_index(), B_TRAIN // mesh.shape["data"]
+    counted, steps = CountedCollectives(), []
+    want_tp, want_calls = tp_train_collectives(cfg)
+    for i in range(DP_STEPS):
+        batch = dataplane_batch(cfg, i, slice(r * rows, (r + 1) * rows))
+        ops.reset_launches()
+        C.reset_tp_counts()
+        counted.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with counted:
+            state, metrics = step_fn(state, batch)
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = ops.launch_counts()
+        if launches != train_launches(cfg):
+            raise AssertionError(f"step {i}: launches {launches}, want {train_launches(cfg)}")
+        tp_calls = {n: c for n, (c, _) in C.tp_counts().items()}
+        calls = {n: c for n, (c, _) in counted.calls.items()}
+        if tp_calls != want_tp or calls != want_calls:
+            raise AssertionError(f"step {i}: region operators {tp_calls}, collectives {calls}; "
+                                 f"want {want_tp}, {want_calls}")
+        steps.append({"metrics": {k: float(v) for k, v in metrics.items()}, "wall_ms": wall,
+                      "launches": launches, "tp": C.tp_counts(),
+                      "collectives": {n: list(v) for n, v in counted.calls.items()}})
+    base = torch.load(base_path, mmap=True, weights_only=True)
+    worst, frac, over = 0.0, (0.0, ""), []
+    for path, leaf in leaves_with_paths(state.params):
+        key = "/".join(path)
+        full = shd.unshard_leaf(leaf, specs[key], mesh)
+        if rank == 0:
+            d = (full.cpu() - base[key]).abs()
+            worst = max(worst, d.max().item())
+            n = int((d > 1e-5).sum())
+            frac = max(frac, (n / d.numel(), key))
+            if n > max(1, 1e-3 * d.numel()):
+                over.append((key, n, d.numel()))
+        del full
+    out["c"] = {"steps": steps, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "params": {"max_abs": worst, "worst_share": frac, "over": over},
+                "wq_local": tuple(state.params["stack"]["b0"]["mixer"]["wq"].shape)}
+
+
+def tp_rank(rank, world, addr, tmp, base_path):
+    """One rank of phase 22 (a spawned process): (a) and (b) on (data=1,
+    model=4), then (c) on (data=2, model=2), over one gloo group of the four
+    ranks. Writes its findings to ``tmp/tp_rank<r>.pt``; raises on any
+    failure."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=addr, rank=rank, world_size=world)
+    try:
+        out = {"rank": rank}
+        tp_serve_rank(rank, make_mesh(*TP_SERVE_MESH, device_type="cuda"), out)
+        tp_train_rank(rank, make_mesh(*TP_TRAIN_MESH, device_type="cuda"), base_path, out)
+        torch.save(out, os.path.join(tmp, f"tp_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def tensor_parallel(card, baseline):
+    """Phase 22: tensor parallelism over "model" on the card. Four ranks
+    (spawned processes, all on cuda:0, one gloo group: NCCL refuses two
+    ranks on one device) (a) hold 2-layer full-width qwen3-1.7b and
+    granite-moe-1b-a400m (fp32) on (data=1, model=4) to one rank on the
+    card: prefill + 2 decode logits at 2e-3, every expert choice and
+    capacity-mask entry equal; (b) serve both at full depth (bf16) as
+    phases 5 / 11 with exact launch and collective counts and the greedy
+    tokens against theirs; (c) train 8-layer qwen3-1.7b (fp32) on (data=2,
+    model=2) for two steps against phase 21's one-rank baseline. Returns
+    the ranks' kernel launches of (b) and (c), summed, for each arch."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import registry
+    from repro_torch.models import zoo
+    from repro_torch.runtime.serve import build_serve_fns
+
+    base_metrics, tmp, base_path = baseline
+    log(f"phase 22: tensor parallelism, 4 gloo ranks on one card: (a) parity and (b) serving "
+        f"on {dict(zip(TP_SERVE_MESH[1], TP_SERVE_MESH[0]))}, (c) training on "
+        f"{dict(zip(TP_TRAIN_MESH[1], TP_TRAIN_MESH[0]))}")
+    dev = torch.device("cuda", 0)
+    one = {}
+    for arch in (DENSE, MOE):  # (a)'s one-rank runs on the card
+        cfg = two_layers(arch)
+        model = zoo.build(cfg, dtype=torch.float32, device=dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(1))
+        one[arch] = tp_parity_run(cfg, *build_serve_fns(model, TP_PARITY_LEN, dev), params)
+        del model, params
+    torch.cuda.empty_cache()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    mp.spawn(tp_rank, args=(4, f"tcp://localhost:{port}", tmp, base_path), nprocs=4)
+    log(f"  4 ranks ran in {time.perf_counter() - t0:.1f} s")
+    ranks = [torch.load(os.path.join(tmp, f"tp_rank{r}.pt"), weights_only=False)
+             for r in range(4)]
+
+    # (a) parity against one rank.
+    for arch in (DENSE, MOE):
+        want, want_routes = one[arch]
+        for res in ranks:
+            got, routes = res[f"a/{arch}"]
+            err = (got - want).abs().max().item()
+            if not torch.allclose(got, want, atol=2e-3, rtol=2e-3):
+                fail(f"phase 22 (a) {arch}: rank {res['rank']} logits differ from one rank's by "
+                     f"{err}")
+            if len(routes) != len(want_routes):
+                fail(f"phase 22 (a) {arch}: {len(routes)} routings, one rank {len(want_routes)}")
+            n_idx = sum(int((a[0] != b[0]).sum()) for a, b in zip(routes, want_routes))
+            n_keep = sum(int((a[1] != b[1]).sum()) for a, b in zip(routes, want_routes))
+            if n_idx or n_keep:
+                fail(f"phase 22 (a) {arch}: rank {res['rank']}: {n_idx} expert choices and "
+                     f"{n_keep} capacity-mask entries differ from one rank's")
+            log(f"  (a) {arch}, 2 layers, fp32, rank {res['rank']}: prefill + 2 decode logits, "
+                f"max |4 ranks - 1 rank| {err:.3e}" + (
+                    f"; expert choices and capacity masks equal in all {len(routes)} routings"
+                    if routes else ""))
+
+    # (b) serving: counts were checked in the ranks; report.
+    totals = {}
+    for arch in (DENSE, MOE):
+        total = {}
+        for res in ranks:
+            b = res[f"b/{arch}"]
+            for k, v in b["launches"].items():
+                total[k] = total.get(k, 0) + v
+            same = int((b["tokens"] == SERVED_TOKENS[arch]).sum())
+            pre_tp, pre_calls, pre_bytes = b["prefill"]
+            dec_tp, dec_calls, dec_bytes = b["decode"]
+            steps = GEN - 1
+            log(f"  (b) {arch} rank {res['rank']}: launches {b['launches']} (as derived); prefill "
+                f"{b['t_prefill'] * 1e3:.1f} ms: all_reduce {pre_calls['all_reduce']} calls "
+                f"{pre_bytes['all_reduce'] / 2**20:.1f} MiB, all-gather "
+                f"{pre_calls['all_gather_into_tensor']} calls "
+                f"{pre_bytes['all_gather_into_tensor'] / 2**20:.3f} MiB; decode {steps} steps in "
+                f"{b['t_decode'] * 1e3:.1f} ms ({b['t_decode'] * 1e3 / steps:.2f} ms/step), a step "
+                f"all_reduce {dec_calls['all_reduce']} calls "
+                f"{dec_bytes['all_reduce'] / 2**10:.1f} KiB, all-gather "
+                f"{dec_calls['all_gather_into_tensor']} calls "
+                f"{dec_bytes['all_gather_into_tensor'] / 2**10:.1f} KiB (exact, "
+                f"tp_serve_collectives); peak memory allocated {b['peak_gib']:.2f} GiB; walls "
+                f"over gloo through host memory [{card}]; greedy tokens equal to the one-rank "
+                f"run's (phase {5 if arch == DENSE else 11}): {same} of {b['tokens'].size}")
+        prof, cfg = ranks[0][f"b/{arch}"]["profile"], registry.get(arch)
+        A = attn_layers(cfg)
+        if "prefill" in prof and "decode" in prof:
+            k1 = prof["prefill"].get("flash_attention", 0.0)
+            k4 = prof["decode"].get("decode_attention", 0.0)
+            log(f"  (b) {arch} rank 0, in-path device time at {cfg.n_heads // 4} / "
+                f"{cfg.n_kv_heads // 4} heads a rank: K1 {k1:.4f} ms a prefill "
+                f"({k1 / A:.4f} per launch), K4 {k4:.4f} ms a decode step ({k4 / A:.4f} per "
+                f"launch), K5 prefill {prof['prefill'].get('rmsnorm', 0.0):.4f} ms "
+                f"(torch.profiler) [{card}]")
+        totals[arch] = total
+
+    # (c) training against phase 21's one-rank baseline.
+    for i, want in enumerate(base_metrics):
+        for res in ranks:
+            got = res["c"]["steps"][i]["metrics"]
+            for k in ("loss", "grad_norm"):
+                if abs(got[k] - want[k]) > 1e-4 * abs(want[k]):
+                    fail(f"phase 22 (c) step {i}: rank {res['rank']} {k} {got[k]} vs one rank "
+                         f"{want[k]} (rtol 1e-4)")
+            if got["committed"] != 1.0 or got["n_yes"] != 2.0:
+                fail(f"phase 22 (c) step {i}: rank {res['rank']} committed {got['committed']}, "
+                     f"n_yes {got['n_yes']}")
+        c0 = ranks[0]["c"]["steps"][i]["metrics"]
+        log(f"  (c) fp32 step {i}: loss {c0['loss']:.6f} vs one rank {want['loss']:.6f}, "
+            f"grad_norm {c0['grad_norm']:.6f} vs {want['grad_norm']:.6f}")
+    p = ranks[0]["c"]["params"]
+    log(f"  (c) gathered params after {DP_STEPS} steps: max |4 ranks - 1 rank| "
+        f"{p['max_abs']:.3e}, worst leaf's share above 1e-5 {p['worst_share'][0]:.2e} "
+        f"({p['worst_share'][1]})")
+    if p["max_abs"] > 3 * DP_OPT["lr"] or p["over"]:
+        fail(f"phase 22 (c): gathered parameters differ from the one-rank step (max "
+             f"{p['max_abs']}; leaves with more than 0.1% above 1e-5: {p['over']})")
+    dense = totals[DENSE]
+    for res in ranks:
+        c = res["c"]
+        for i, st in enumerate(c["steps"]):
+            coll = ", ".join(f"{n} {k} calls {b / 2**20:.1f} MiB"
+                             for n, (k, b) in st["collectives"].items())
+            tp = ", ".join(f"{n} {k} calls {b / 2**20:.1f} MiB" for n, (k, b) in st["tp"].items())
+            log(f"  (c) rank {res['rank']} step {i}: loss {st['metrics']['loss']:.6f}, wall "
+                f"{st['wall_ms']:.1f} ms over gloo through host memory; {coll}; of which the "
+                f"region operators: {tp}")
+            for k, v in st["launches"].items():
+                dense[k] = dense.get(k, 0) + v
+        log(f"  (c) rank {res['rank']}: wq slice {c['wq_local']}, peak memory allocated "
+            f"{c['peak_gib']:.2f} GiB [{card}]")
+    log(f"  launches per rank as derived (serve as phases 5 / 11, train as train_launches); "
+        f"collective calls as tp_serve_collectives / tp_train_collectives; phase 22 launches in "
+        f"all: {DENSE} {dense}, {MOE} {totals[MOE]}")
+    return dense, totals[MOE]
 
 
 # ------------------------------------------------------------------ main
@@ -1480,11 +1923,14 @@ def main() -> int:
     # an xlstm train step ~50 s on this path (PERF.md).
     counts[XLSTM, "train"] = train(dev, card, registry.get(XLSTM), 20, measured=2)
     torch.cuda.empty_cache()
-    counts[DENSE, "dataplane"] = dataplane(card)
+    baseline = dataplane_baseline()
+    counts[DENSE, "dataplane"] = dataplane(card, baseline)
+    counts[DENSE, "tp"], counts[MOE, "tp"] = tensor_parallel(card, baseline)
+    shutil.rmtree(baseline[1])
     for e in kernels:
         e["launches"] = sum(c[e["name"]] for c in counts.values())
     for e in kernels_d64:
-        e["launches"] = counts[MOE, "serve"][e["name"]] + counts[MOE, "train"][e["name"]]
+        e["launches"] = sum(c[e["name"]] for (arch, _), c in counts.items() if arch == MOE)
     for e in fwd_jamba:
         e["launches"] = counts[JAMBA, "serve"][e["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -21,14 +21,35 @@ gather and whose backward is the reduce-scatter (sum): the transpose that
 JAX's autodiff gives ``lax.all_gather``. Sums run in fp32 (a bfloat16 leaf
 is cast back after), gathers move the leaves' own bytes.
 
+Tensor parallelism over "model" (Megatron's region operators, as autograd
+Functions over the "model" group of a ``ModelParallel`` context):
+
+  copy_to_model      identity forward; the backward sums the gradients
+                     over the group (one ``all_reduce`` for all its
+                     tensors). In front of every column-parallel product.
+  reduce_from_model  the sum over the group forward (fp32, cast once);
+                     identity backward. After every row-parallel product.
+  gather_from_model  the tiled all-gather along a dim forward; the
+                     backward keeps this rank's slice (the vocab-parallel
+                     logits, a split position table).
+  vocab_parallel_nll the cross entropy of vocab-parallel logits: the max
+                     (one ``all_reduce``), then the sum of exps and the
+                     target logit (one more); no rank holds the full logits.
+
+Each counts the collectives it issues and their bytes (``tp_counts``). A
+rematerialised region runs its forward again in the backward, so a
+``reduce_from_model`` inside it runs again there, at the same point on
+every rank.
+
 Every function takes the group explicitly. A world of one rank is a real
 one-rank group whose collectives run (and are counted), not a skipped call.
 Trees are nested dicts of tensors (``repro_torch.tree``).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Any, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
 import torch.distributed as dist
@@ -239,3 +260,145 @@ def consensus_gradient_sync(grads: Any, group, track: str = "fast",
         raise ValueError(f"unknown track {track!r}")
     denom = torch.clamp(n_yes, min=1.0)
     return tree_map(lambda g: g / denom.to(g.dtype), summed), n_yes, committed
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over "model"
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelParallel:
+    """The TP context a layer reads: the "model" group, this rank's
+    coordinate on it and its size."""
+    group: Any
+    index: int
+    size: int
+
+
+TP_OPS = ("copy_to_model", "reduce_from_model", "gather_from_model", "vocab_parallel_nll")
+_tp_counts: Dict[str, List[int]] = {name: [0, 0] for name in TP_OPS}
+
+
+def tp_counts() -> Dict[str, Tuple[int, int]]:
+    """(collective calls, bytes into them) of each region operator."""
+    return {name: tuple(v) for name, v in _tp_counts.items()}
+
+
+def reset_tp_counts() -> None:
+    for v in _tp_counts.values():
+        v[0] = v[1] = 0
+
+
+def _count(name: str, t: torch.Tensor) -> None:
+    _tp_counts[name][0] += 1
+    _tp_counts[name][1] += t.numel() * t.element_size()
+
+
+def _sum_fp32(xs, group, name: str):
+    """The sum over ``group`` of each of ``xs`` in ONE fp32 ``all_reduce``,
+    each cast back to its own type."""
+    if len(xs) == 1:
+        buf = xs[0].to(torch.float32, copy=True)  # never reduce a caller's tensor in place
+    else:
+        buf = torch.cat([x.reshape(-1).float() for x in xs])
+    _count(name, buf)
+    dist.all_reduce(buf, group=group)
+    out, off = [], 0
+    for x in xs:
+        out.append(buf[off:off + x.numel()].reshape(x.shape).to(x.dtype))
+        off += x.numel()
+    return out
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, *xs):
+        ctx.group = group
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *_sum_fp32(list(grads), ctx.group, "copy_to_model"))
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, x, dtype):
+        ctx.dtype = x.dtype
+        buf = x.to(torch.float32, copy=True)
+        _count("reduce_from_model", buf)
+        dist.all_reduce(buf, group=group)
+        return buf.to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g.to(ctx.dtype), None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, index, x, dim):
+        ctx.index, ctx.dim, ctx.n = index, dim, x.shape[dim]
+        _count("gather_from_model", x)
+        return all_gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, g.narrow(ctx.dim, ctx.index * ctx.n, ctx.n).contiguous(), None
+
+
+def copy_to_model(tp: ModelParallel, *xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """``xs`` unchanged; their gradients summed over the "model" group."""
+    return _CopyToModel.apply(tp.group, *xs)
+
+
+def reduce_from_model(tp: ModelParallel, x: torch.Tensor, dtype=None) -> torch.Tensor:
+    """The sum of the ranks' partials ``x`` in fp32, cast once to ``dtype``
+    (default ``x``'s type)."""
+    return _ReduceFromModel.apply(tp.group, x, x.dtype if dtype is None else dtype)
+
+
+def gather_from_model(tp: ModelParallel, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The ranks' slices of ``x`` tiled along ``dim`` (rank order)."""
+    return _GatherFromModel.apply(tp.group, tp.index, x, dim)
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, logits, labels, start):
+        lf = logits.float()
+        top = lf.amax(dim=-1)
+        _count("vocab_parallel_nll", top)
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+        shifted = lf - top[..., None]
+        del lf
+        local = labels - start
+        inside = (local >= 0) & (local < logits.shape[-1])
+        local = torch.where(inside, local, torch.zeros_like(local))
+        target = torch.gather(shifted, -1, local[..., None])[..., 0] * inside
+        exps = torch.exp(shifted)
+        del shifted
+        sums = torch.stack([exps.sum(dim=-1), target])
+        _count("vocab_parallel_nll", sums)
+        dist.all_reduce(sums, group=group)
+        exps.div_(sums[0][..., None])  # the local slice of the softmax
+        ctx.save_for_backward(exps, local, inside)
+        ctx.dtype = logits.dtype
+        return torch.log(sums[0]) - sums[1]
+
+    @staticmethod
+    def backward(ctx, dnll):
+        probs, local, inside = ctx.saved_tensors
+        grad = probs.clone()
+        grad.scatter_add_(-1, local[..., None], -inside[..., None].float())
+        return None, (grad * dnll[..., None].float()).to(ctx.dtype), None, None
+
+
+def vocab_parallel_nll(tp: ModelParallel, logits: torch.Tensor, labels: torch.Tensor
+                       ) -> torch.Tensor:
+    """-log softmax(logits)[label] in fp32, where ``logits`` is this rank's
+    slice of the vocabulary (rows ``tp.index * V_local`` onward): the same
+    value as ``log_softmax`` + ``gather`` over the full logits, on every
+    rank, and the gradient of the local slice."""
+    return _VocabParallelNLL.apply(tp.group, logits, labels, tp.index * logits.shape[-1])

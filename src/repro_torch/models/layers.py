@@ -12,6 +12,17 @@ RMSNorm, qk-norm and attention go through ``kernels/ops.py``: the plain
 PyTorch versions for CPU tensors, the hand-written kernels for CUDA ones,
 differentiable on both. ``embed_lookup`` has the fp32 scatter-add backward
 of ``repro.models.layers.embed_lookup``.
+
+Tensor parallelism (``tp``, a ``collective.ModelParallel``; None on one
+rank): a layer computes on this rank's slices of its leaves, as the sharding
+rules cut them, and reads what it holds from the local shapes (a leaf that
+does not divide the "model" axis stays whole). Attention splits its heads
+(wq / wk / wv column-parallel, wo row-parallel), the dense FFN its hidden
+dim (w_gate / w_up / b_up column-parallel, w_down row-parallel, b_down added
+once after the sum); ``collective.copy_to_model`` opens each region and
+``reduce_from_model`` closes it. The replicated leaves used inside a region
+(qk-norm scales, a whole wk / wv) pass through ``copy_to_model`` too, so
+their gradients are the whole sums on every rank.
 """
 from __future__ import annotations
 
@@ -22,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.collective import ModelParallel, copy_to_model, reduce_from_model
 from repro_torch.kernels import ops
 
 Params = Dict[str, Any]
@@ -109,6 +121,34 @@ def init_attention(cfg: ArchConfig, gen: torch.Generator, dtype=torch.bfloat16) 
     return p
 
 
+def local_kv_heads(cfg: ArchConfig, n_model: int) -> int:
+    """The KV heads a rank holds (and caches) on a "model" axis of
+    ``n_model``: ``n_kv_heads / n_model`` where wk splits into whole heads,
+    all of them where wk does not divide the axis. A slice of wk that is not
+    whole heads (``repro`` then splits the head dim, ``sharding.py``'s cache
+    rule) raises."""
+    if n_model == 1 or cfg.kv_dim % n_model:
+        return cfg.n_kv_heads
+    if cfg.n_kv_heads % n_model:
+        raise NotImplementedError(
+            f"{cfg.name}: leaf 'wk' ({cfg.n_kv_heads} KV heads of {cfg.head_dim}) splits over "
+            f"a 'model' axis of {n_model} into {cfg.n_kv_heads / n_model:g} heads a rank; "
+            f"splitting the head dim is not ported yet")
+    return cfg.n_kv_heads // n_model
+
+
+def _kv_heads_used(cfg: ArchConfig, hq: int, tp: ModelParallel) -> Tuple[int, int]:
+    """[lo, hi) of the KV heads that this rank's ``hq`` query heads read,
+    where wq splits over "model" and wk / wv stay whole."""
+    group = cfg.n_heads // cfg.n_kv_heads
+    if hq % group and group % hq:
+        raise NotImplementedError(
+            f"{cfg.name}: {hq} query heads a rank on a 'model' axis of {tp.size} do not "
+            f"cover whole GQA groups of {group}, with leaf 'wk' replicated")
+    lo = tp.index * hq // group
+    return lo, lo + max(1, hq // group)
+
+
 def _project_qkv(cfg: ArchConfig, p: Params, x: torch.Tensor, positions: torch.Tensor):
     B, T, _ = x.shape
     q = x @ p["wq"]
@@ -116,9 +156,10 @@ def _project_qkv(cfg: ArchConfig, p: Params, x: torch.Tensor, positions: torch.T
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, T, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    # The heads this rank holds: all of them on one rank.
+    q = q.reshape(B, T, -1, cfg.head_dim)
+    k = k.reshape(B, T, -1, cfg.head_dim)
+    v = v.reshape(B, T, -1, cfg.head_dim)
     if cfg.qk_norm:
         q = rms_head_norm(q, p["q_norm"])
         k = rms_head_norm(k, p["k_norm"])
@@ -136,10 +177,12 @@ def attention(
     positions: Optional[torch.Tensor] = None,
     cache: Optional[Params] = None,
     cache_pos: Optional[int] = None,
+    tp: Optional[ModelParallel] = None,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Full attention: the uncached forward when cache is None; a cached
     step of T tokens written at ``cache_pos`` otherwise (prefill: T = the
-    prompt, cache_pos 0; decode: T = 1).
+    prompt, cache_pos 0; decode: T = 1). Under ``tp`` on this rank's heads,
+    the output summed over "model".
 
     ``cache_pos`` is one int for the whole batch, as ``Model.decode_step``
     uses it. K and V are written into the cache IN PLACE by slice assignment,
@@ -149,9 +192,23 @@ def attention(
     if positions is None:
         start = 0 if cache is None else int(cache_pos)
         positions = torch.arange(start, start + T, device=x.device)[None, :].expand(B, T)
+    split = tp is not None and p["wq"].shape[-1] < cfg.q_dim
+    kv = None  # [lo, hi) of the KV heads this rank's queries read, where wk is whole
+    if split:
+        p = dict(p)
+        whole = [k for k in ("q_norm", "k_norm") if k in p]
+        if p["wk"].shape[-1] == cfg.kv_dim:
+            whole += [k for k in ("wk", "wv", "bk", "bv") if k in p]
+            kv = _kv_heads_used(cfg, p["wq"].shape[-1] // cfg.head_dim, tp)
+        else:
+            local_kv_heads(cfg, tp.size)  # raises for a slice of wk that is not whole heads
+        x, *leaves = copy_to_model(tp, x, *(p[k] for k in whole))
+        p.update(zip(whole, leaves))
     q, k, v = _project_qkv(cfg, p, x, positions)
 
     if cache is None:
+        if kv is not None:
+            k, v = k[:, :, kv[0]:kv[1]], v[:, :, kv[0]:kv[1]]
         out = ops.flash_attention(q, k, v, causal=True)
         new_cache = None
     else:
@@ -159,6 +216,9 @@ def attention(
         k_cache, v_cache = cache["k"], cache["v"]
         k_cache[:, idx:idx + T] = k
         v_cache[:, idx:idx + T] = v
+        if kv is not None:  # the cache holds every KV head, as its spec says
+            k_cache = k_cache[:, :, kv[0]:kv[1]].contiguous()
+            v_cache = v_cache[:, :, kv[0]:kv[1]].contiguous()
         # Causal over the cache: query t (global position idx+t) sees keys
         # [0, idx+t]; kv_len hides never-written slots.
         if T == 1:
@@ -168,13 +228,15 @@ def attention(
                                       q_offset=idx, kv_len=idx + T)
         new_cache = cache
 
-    y = out.reshape(B, T, cfg.q_dim) @ p["wo"]
+    y = out.reshape(B, T, -1) @ p["wo"]
+    if split:
+        y = reduce_from_model(tp, y)
     return y, new_cache
 
 
 def init_attn_cache(cfg: ArchConfig, batch: int, max_len: int, device,
-                    dtype=torch.bfloat16) -> Params:
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+                    dtype=torch.bfloat16, tp: Optional[ModelParallel] = None) -> Params:
+    shape = (batch, max_len, local_kv_heads(cfg, 1 if tp is None else tp.size), cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -198,7 +260,14 @@ def init_ffn(cfg: ArchConfig, gen: torch.Generator, dtype=torch.bfloat16) -> Par
     }
 
 
-def apply_ffn(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+def apply_ffn(cfg: ArchConfig, p: Params, x: torch.Tensor,
+              tp: Optional[ModelParallel] = None) -> torch.Tensor:
+    if tp is not None and p["w_down"].shape[-2] < cfg.d_ff:
+        (x,) = copy_to_model(tp, x)
+        if cfg.activation == "swiglu":
+            return reduce_from_model(tp, (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"])
+        h = F.gelu(x @ p["w_up"] + p["b_up"], approximate="tanh")
+        return reduce_from_model(tp, h @ p["w_down"]) + p["b_down"]
     if cfg.activation == "swiglu":
         return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
     # jax.nn.gelu defaults to the tanh approximation.

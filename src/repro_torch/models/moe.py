@@ -21,15 +21,26 @@ and ``_combine``; the expert products run between the last two.
 
 Auxiliary losses (Switch Transformer): the load-balance loss on the top-1
 choice fractions and the router z-loss, returned to the caller.
+
+Expert parallelism (``tp``): where the expert leaves split over "model",
+a rank holds experts [i E/M, (i + 1) E/M). The router and the routing run
+replicated on every rank (the same choices, slots and masks as on one
+rank), the dispatch fills only the local experts' rows (other choices go
+to the sink), and the combine's fp32 partial of the local experts is summed
+over "model" (``reduce_from_model``) and cast once. The tokens and gates
+enter that region through ``copy_to_model``, so their gradients are whole
+on every rank; the aux losses come from the replicated routing and are not
+summed again.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.collective import ModelParallel, copy_to_model, reduce_from_model
 from repro_torch.models.layers import _dense_init
 
 Params = Dict[str, Any]
@@ -110,19 +121,28 @@ def _slots(cfg: ArchConfig, expert_idx: torch.Tensor, C: int):
     return choice, pos, pos < C
 
 
-def _dispatch(cfg: ArchConfig, r: Routing, xt: torch.Tensor, C: int):
+def _dispatch(cfg: ArchConfig, r: Routing, xt: torch.Tensor, C: int,
+              experts: Optional[Tuple[int, int]] = None):
     """(xe (E, C, d), what ``_combine`` needs): the tokens in their
-    (expert, slot) rows."""
+    (expert, slot) rows. ``experts`` = (first, count) of this rank's
+    experts under expert parallelism: xe holds their rows only."""
     m = cfg.moe
     E, K, d = m.n_experts, m.top_k, xt.shape[1]
+    lo = 0
+    if experts is not None:
+        lo, E = experts
     if m.dispatch == "einsum":
         # GShard dense one-hot dispatch (repro's reference / baseline).
+        choice = r.choice if experts is None else r.choice[..., lo:lo + E]
         pos_onehot = _one_hot(r.pos.long(), C, torch.float32)  # (S, K, C)
-        dispatch = torch.einsum("ske,skc->sec", r.choice.to(xt.dtype), pos_onehot.to(xt.dtype))
-        combine = torch.einsum("ske,skc,sk->sec", r.choice, pos_onehot, r.gates).to(xt.dtype)
+        dispatch = torch.einsum("ske,skc->sec", choice.to(xt.dtype), pos_onehot.to(xt.dtype))
+        combine = torch.einsum("ske,skc,sk->sec", choice, pos_onehot, r.gates).to(xt.dtype)
         return torch.einsum("sd,sec->ecd", xt, dispatch), combine
-    slot = r.expert_idx * C + r.pos.long()                          # (S, K)
-    slot = torch.where(r.keep, slot, torch.full_like(slot, E * C))  # drops -> sink row
+    idx, keep = r.expert_idx, r.keep
+    if experts is not None:
+        idx, keep = idx - lo, keep & (idx >= lo) & (idx < lo + E)
+    slot = idx * C + r.pos.long()                                   # (S, K)
+    slot = torch.where(keep, slot, torch.full_like(slot, E * C))    # drops -> sink row
     upd = xt.repeat_interleave(K, dim=0)                            # (S*K, d), jnp.repeat
     # repro adds each row into a zero buffer; every kept slot receives one
     # row, so a copy writes the same values, without atomics. Only the sink
@@ -132,20 +152,27 @@ def _dispatch(cfg: ArchConfig, r: Routing, xt: torch.Tensor, C: int):
     return xe_flat[: E * C].reshape(E, C, d), slot
 
 
-def _combine(cfg: ArchConfig, r: Routing, ye: torch.Tensor, how: torch.Tensor) -> torch.Tensor:
+def _combine(cfg: ArchConfig, r: Routing, ye: torch.Tensor, how: torch.Tensor,
+             tp: Optional[ModelParallel] = None) -> torch.Tensor:
     """(S, d) in ye's type: each kept choice's expert output weighed by its
-    gate. ``how`` is the combine tensor (einsum) or the slots (scatter)."""
+    gate. ``how`` is the combine tensor (einsum) or the slots (scatter).
+    Under ``tp``: the local experts' fp32 partial, summed over "model"."""
     if cfg.moe.dispatch == "einsum":
-        return torch.einsum("ecd,sec->sd", ye, how)
+        if tp is None:
+            return torch.einsum("ecd,sec->sd", ye, how)
+        return reduce_from_model(tp, torch.einsum("ecd,sec->sd", ye.float(), how.float()),
+                                 ye.dtype)
     E, C, d = ye.shape
     ye_flat = torch.cat([ye.reshape(E * C, d), ye.new_zeros((1, d))], dim=0)
     # index_select: its backward is an index_add, where indexing's sorts the
     # indices, and the dropped choices all point at the sink row.
     picked = ye_flat.index_select(0, how.reshape(-1)).reshape(*how.shape, d)  # (S, K, d)
-    return torch.einsum("skd,sk->sd", picked.float(), r.gates).to(ye.dtype)
+    y = torch.einsum("skd,sk->sd", picked.float(), r.gates)
+    return y.to(ye.dtype) if tp is None else reduce_from_model(tp, y, ye.dtype)
 
 
-def apply_moe(cfg: ArchConfig, p: Params, x: torch.Tensor, with_aux: bool = True
+def apply_moe(cfg: ArchConfig, p: Params, x: torch.Tensor, with_aux: bool = True,
+              tp: Optional[ModelParallel] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, T, d) -> (y, aux losses). Routing is per token, over the
     S = B·T tokens of this call. ``with_aux=False`` leaves the aux losses
@@ -156,12 +183,19 @@ def apply_moe(cfg: ArchConfig, p: Params, x: torch.Tensor, with_aux: bool = True
     C = _capacity(cfg, B * T)
     xt = x.reshape(B * T, d)
     r = route(cfg, p["router"], xt, C)
-    xe, how = _dispatch(cfg, r, xt, C)
+    n_local = p["w_up_e"].shape[-3]
+    if tp is None or n_local == m.n_experts:
+        tp, experts = None, None
+    else:
+        experts = (tp.index * n_local, n_local)
+        xt, gates = copy_to_model(tp, xt, r.gates)
+        r = r._replace(gates=gates)
+    xe, how = _dispatch(cfg, r, xt, C, experts)
     if cfg.activation == "swiglu":
         h = F.silu(torch.bmm(xe, p["w_gate_e"])) * torch.bmm(xe, p["w_up_e"])
     else:
         h = F.gelu(torch.bmm(xe, p["w_up_e"]), approximate="tanh")
-    y = _combine(cfg, r, torch.bmm(h, p["w_down_e"]), how)
+    y = _combine(cfg, r, torch.bmm(h, p["w_down_e"]), how, tp)
 
     aux: Dict[str, torch.Tensor] = {}
     if with_aux:

@@ -27,6 +27,12 @@ Block structure:
 A MoE block also returns its aux losses; ``apply_stack`` sums them over the
 layers. Cached (serve) steps leave them out: no caller reads them there.
 
+Tensor parallelism: ``tp`` (a ``collective.ModelParallel``, None on one
+rank) goes to every attention, FFN and MoE layer, which compute on this
+rank's slices of their leaves (``layers.py``, ``moe.py``). The recurrent
+mixers have no TP port yet: a mamba, mlstm or slstm block under ``tp``
+raises.
+
 The cache of an attention block is its K/V, written in place; that of a
 recurrent block is its state (mamba: conv in the model type, h fp32; mlstm:
 C, n, m fp32; slstm: c, n, h, m fp32), which the mixer returns anew and the
@@ -42,6 +48,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.collective import ModelParallel
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
@@ -96,16 +103,19 @@ def apply_block(
     positions: Optional[torch.Tensor],
     cache: Optional[Params],
     cache_pos: Optional[int],
+    tp: Optional[ModelParallel] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Optional[Params]]:
     """(x, aux, cache): aux holds a MoE block's aux losses (uncached calls
     only) and is empty otherwise. An attention block's cache is updated in
     place and returned; a recurrent block returns its new state (None when
     ``cache`` is None)."""
     aux: Dict[str, torch.Tensor] = {}
+    if tp is not None:
+        check_tp_kind(kind)
     h = L.apply_norm(cfg, p["norm1"], x)
     if kind == "attn":
         y, new_cache = L.attention(cfg, p["mixer"], h, positions=positions, cache=cache,
-                                   cache_pos=cache_pos)
+                                   cache_pos=cache_pos, tp=tp)
     elif kind == "mamba":
         y, new_cache = S.apply_mamba(cfg, p["mixer"], h, state=cache)
     elif kind == "mlstm":
@@ -118,17 +128,37 @@ def apply_block(
     if cfg.d_ff > 0 and kind in ("attn", "mamba"):
         h2 = L.apply_norm(cfg, p["norm2"], x)
         if is_moe:
-            y2, aux = M.apply_moe(cfg, p["ffn"], h2, with_aux=cache is None)
+            y2, aux = M.apply_moe(cfg, p["ffn"], h2, with_aux=cache is None, tp=tp)
         else:
-            y2 = L.apply_ffn(cfg, p["ffn"], h2)
+            y2 = L.apply_ffn(cfg, p["ffn"], h2, tp=tp)
         x = x + y2
     return x, aux, new_cache
 
 
+def check_tp_kind(kind: str) -> None:
+    """Raises for a block kind whose tensor parallelism is not ported."""
+    if kind != "attn":
+        raise NotImplementedError(
+            f"tensor parallelism over 'model' for {kind!r} blocks is not ported yet (the "
+            f"recurrent mixers' 'model' rules, runtime/sharding.py); use a 'model' axis of 1")
+
+
+def check_tp(cfg: ArchConfig, n_model: int) -> None:
+    """Raises where ``cfg`` cannot run tensor parallel on a "model" axis of
+    ``n_model``: a recurrent block, or KV heads that do not split whole."""
+    if n_model == 1:
+        return
+    for kind in cfg.block_types():
+        check_tp_kind(kind)
+    L.local_kv_heads(cfg, n_model)
+
+
 def init_block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int, device,
-                     dtype) -> Params:
+                     dtype, tp: Optional[ModelParallel] = None) -> Params:
+    if tp is not None:
+        check_tp_kind(kind)
     if kind == "attn":
-        return L.init_attn_cache(cfg, batch, max_len, device, dtype)
+        return L.init_attn_cache(cfg, batch, max_len, device, dtype, tp)
     if kind == "mamba":
         return S.init_mamba_state(cfg, batch, device, dtype)
     if kind == "mlstm":
@@ -165,12 +195,12 @@ def init_stack(cfg: ArchConfig, gen: torch.Generator, dtype) -> Params:
 
 
 def init_stack_cache(cfg: ArchConfig, batch: int, max_len: int, device,
-                     dtype=torch.bfloat16) -> Params:
+                     dtype=torch.bfloat16, tp: Optional[ModelParallel] = None) -> Params:
     sig = period_signature(cfg)
     G = n_groups(cfg)
     out = {}
     for j, (kind, is_moe) in enumerate(sig):
-        one = init_block_cache(cfg, kind, batch, max_len, device, dtype)
+        one = init_block_cache(cfg, kind, batch, max_len, device, dtype, tp)
         out[f"b{j}"] = _map(lambda a: a[None].repeat(G, *([1] * a.ndim)), one)
     return out
 
@@ -196,6 +226,7 @@ def apply_stack(
     cache_pos: Optional[int] = None,
     train: bool = False,
     gather_fn=None,
+    tp: Optional[ModelParallel] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Optional[Params]]:
     """Runs every layer group in order: (x, aux, caches). aux sums the MoE
     blocks' aux losses over the layers (empty for a dense stack or a cached
@@ -208,7 +239,10 @@ def apply_stack(
     subtree (this rank's shards) to the full weights INSIDE the group body,
     so inside the rematerialised region: only one group of full weights is
     live at a time (ZeRO-3), the backward's recompute gathers again, and the
-    gather's backward reduce-scatters the group's gradients."""
+    gather's backward reduce-scatters the group's gradients.
+
+    tp (optional): tensor parallelism over "model"; the group's leaves are
+    this rank's "model" slices (after ``gather_fn``'s FSDP gather)."""
     sig = period_signature(cfg)
     unbound = _map(lambda a: a.unbind(0), stack_params)
 
@@ -219,7 +253,7 @@ def apply_stack(
         for j, (kind, is_moe) in enumerate(sig):
             gc = None if caches is None else _map(lambda a: a[g], caches[f"b{j}"])
             x, a, new = apply_block(cfg, kind, is_moe, gp[f"b{j}"], x, positions=positions,
-                                    cache=gc, cache_pos=cache_pos)
+                                    cache=gc, cache_pos=cache_pos, tp=tp)
             if gc is not None and kind != "attn":  # a recurrent block's new state
                 for name, dst in gc.items():
                     dst.copy_(new[name])

@@ -15,15 +15,28 @@ with ``torch.autograd.grad`` (``runtime/spmd.py``), as JAX differentiates
 its functional loss. The cache's ``pos`` is a Python int: one position for
 the whole batch, as in ``repro``. Cached steps update the cache in place:
 attention K/V and the recurrent mixers' states alike.
+
+Tensor parallelism: every method takes ``tp`` (a ``collective.ModelParallel``;
+None on one rank, where the code is the one-rank path) with ``params`` this
+rank's "model" slices. The embedding, head and loss are vocab-parallel where
+``embed/tok`` (and ``embed/head``) split over "model": the lookup reads the
+local rows (tokens outside them give zero rows) and the ranks' rows are
+summed; the head computes the local slice of the logits, which ``forward``
+returns; ``loss`` takes the cross entropy over the ranks' slices
+(``collective.vocab_parallel_nll``), and ``prefill`` / ``decode_step``
+gather the full (B, V) logits. A vocabulary that does not divide the axis
+leaves the table whole, and these run as on one rank.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.collective import (ModelParallel, copy_to_model, gather_from_model,
+                                         reduce_from_model, vocab_parallel_nll)
 from repro_torch.device import resolve
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -100,45 +113,75 @@ class Model(nn.Module):
 
     # ----------------------------------------------------------- embeddings
 
+    def _vocab_split(self, params: Params, tp: Optional[ModelParallel]) -> bool:
+        """Whether this rank holds a slice of the vocabulary."""
+        return tp is not None and params["embed"]["tok"].shape[0] < self.cfg.vocab_size
+
     def _embed(self, params: Params, batch: Dict[str, torch.Tensor],
-               pos_offset: int = 0) -> torch.Tensor:
+               pos_offset: int = 0, tp: Optional[ModelParallel] = None) -> torch.Tensor:
         if "embeddings" in batch:
             h = batch["embeddings"].to(self.dtype)
+        elif self._vocab_split(params, tp):
+            table = params["embed"]["tok"]
+            local = batch["tokens"] - tp.index * table.shape[0]
+            inside = (local >= 0) & (local < table.shape[0])
+            rows = L.embed_lookup(table, torch.where(inside, local, torch.zeros_like(local)))
+            h = reduce_from_model(tp, torch.where(inside[..., None], rows, torch.zeros_like(rows)))
         else:
             h = L.embed_lookup(params["embed"]["tok"], batch["tokens"])
         if self.cfg.pos == "learned":
             idx = torch.arange(h.shape[1], device=h.device) + pos_offset
-            h = h + L.embed_lookup(params["embed"]["pos"], idx)[None]
+            pos = params["embed"]["pos"]
+            if tp is not None and pos.shape[-1] < self.cfg.d_model:  # split over d
+                h = h + gather_from_model(tp, L.embed_lookup(pos, idx), -1)[None]
+            else:
+                h = h + L.embed_lookup(pos, idx)[None]
         return h
 
-    def _head(self, params: Params, h: torch.Tensor) -> torch.Tensor:
+    def _head(self, params: Params, h: torch.Tensor,
+              tp: Optional[ModelParallel] = None) -> torch.Tensor:
+        """The logits, or under a split vocabulary this rank's slice."""
+        if self._vocab_split(params, tp):
+            (h,) = copy_to_model(tp, h)
         if self.cfg.tie_embeddings:
             return h @ params["embed"]["tok"].T
         return h @ params["embed"]["head"]
 
+    def _full_logits(self, params: Params, h: torch.Tensor,
+                     tp: Optional[ModelParallel]) -> torch.Tensor:
+        logits = self._head(params, h[:, -1:], tp)[:, 0]
+        if self._vocab_split(params, tp):
+            logits = gather_from_model(tp, logits, -1)
+        return logits
+
     # -------------------------------------------------------------- forward
 
     def forward(self, params: Params, batch: Dict[str, torch.Tensor], train: bool = False,
-                gather_fn=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                gather_fn=None, tp: Optional[ModelParallel] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(logits, aux): aux sums the MoE aux losses over the layers, and
         is 0 for each term a stack does not produce (a dense stack).
-        ``gather_fn``: FSDP weight streaming (``transformer.apply_stack``)."""
-        h = self._embed(params, batch)
+        ``gather_fn``: FSDP weight streaming (``transformer.apply_stack``).
+        Under ``tp`` with a split vocabulary, this rank's slice of the logits."""
+        h = self._embed(params, batch, tp=tp)
         h, aux, _ = T.apply_stack(self.cfg, params["stack"], h, train=train,
-                                  gather_fn=gather_fn)
+                                  gather_fn=gather_fn, tp=tp)
         h = L.apply_norm(self.cfg, params["final_norm"], h)
         aux = {k: aux[k] if k in aux else torch.zeros((), device=h.device)
                for k in T.AUX_KEYS}
-        return self._head(params, h), aux
+        return self._head(params, h, tp), aux
 
-    def loss(self, params: Params, batch: Dict[str, torch.Tensor], gather_fn=None
-             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor], gather_fn=None,
+             tp: Optional[ModelParallel] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Mean next-token cross entropy in fp32 (over ``loss_mask`` when
         given) plus the aux losses: ``repro.models.zoo.Model.loss``."""
-        logits, aux = self.forward(params, batch, train=True, gather_fn=gather_fn)
+        logits, aux = self.forward(params, batch, train=True, gather_fn=gather_fn, tp=tp)
         labels = batch["labels"].long()
-        lf = torch.log_softmax(logits.float(), dim=-1)
-        nll = -torch.gather(lf, -1, labels[..., None])[..., 0]
+        if self._vocab_split(params, tp):
+            nll = vocab_parallel_nll(tp, logits, labels)
+        else:
+            lf = torch.log_softmax(logits.float(), dim=-1)
+            nll = -torch.gather(lf, -1, labels[..., None])[..., 0]
         mask = batch.get("loss_mask")
         if mask is None:
             ce = nll.mean()
@@ -149,15 +192,17 @@ class Model(nn.Module):
 
     # -------------------------------------------------------------- serving
 
-    def init_cache(self, batch_size: int, max_len: int) -> Params:
+    def init_cache(self, batch_size: int, max_len: int,
+                   tp: Optional[ModelParallel] = None) -> Params:
+        """Under ``tp`` the attention caches hold this rank's KV heads."""
         return {
             "layers": T.init_stack_cache(self.cfg, batch_size, max_len, self.device,
-                                         self.dtype),
+                                         self.dtype, tp),
             "pos": 0,
         }
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
-                max_len: int) -> Tuple[torch.Tensor, Params]:
+                max_len: int, tp: Optional[ModelParallel] = None) -> Tuple[torch.Tensor, Params]:
         """Parallel prompt pass that also fills the decode cache: attention
         layers write the prompt's K/V into cache slots [0, T) and attend
         causally over them (one cached multi-token step at cache_pos 0);
@@ -166,24 +211,22 @@ class Model(nn.Module):
         through the recurrence, as in ``repro``."""
         x = batch.get("tokens", batch.get("embeddings"))
         B, Tn = x.shape[:2]
-        h = self._embed(params, batch)
-        cache = self.init_cache(B, max_len)
+        h = self._embed(params, batch, tp=tp)
+        cache = self.init_cache(B, max_len, tp)
         h, _, layers = T.apply_stack(self.cfg, params["stack"], h,
-                                     caches=cache["layers"], cache_pos=0)
+                                     caches=cache["layers"], cache_pos=0, tp=tp)
         h = L.apply_norm(self.cfg, params["final_norm"], h)
-        logits = self._head(params, h[:, -1:])[:, 0]
-        return logits, {"layers": layers, "pos": Tn}
+        return self._full_logits(params, h, tp), {"layers": layers, "pos": Tn}
 
-    def decode_step(self, params: Params, cache: Params,
-                    batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Params]:
+    def decode_step(self, params: Params, cache: Params, batch: Dict[str, torch.Tensor],
+                    tp: Optional[ModelParallel] = None) -> Tuple[torch.Tensor, Params]:
         """One token for every sequence in the batch."""
         pos = cache["pos"]
-        h = self._embed(params, batch, pos_offset=pos)
+        h = self._embed(params, batch, pos_offset=pos, tp=tp)
         h, _, layers = T.apply_stack(self.cfg, params["stack"], h,
-                                     caches=cache["layers"], cache_pos=pos)
+                                     caches=cache["layers"], cache_pos=pos, tp=tp)
         h = L.apply_norm(self.cfg, params["final_norm"], h)
-        logits = self._head(params, h[:, -1:])[:, 0]
-        return logits, {"layers": layers, "pos": pos + h.shape[1]}
+        return self._full_logits(params, h, tp), {"layers": layers, "pos": pos + h.shape[1]}
 
 
 def build(cfg: ArchConfig, dtype: torch.dtype = torch.bfloat16,

@@ -9,7 +9,8 @@ Axes:
             also sharded over "data" on one dimension (its FSDP dim) and
             all-gathered just in time inside the step.
   "model" -- tensor parallelism: heads / FFN hidden / vocab / experts / SSM
-            channels. The rules name it; the train step does not run it yet.
+            channels. Serving and the train step run it for attention, dense
+            FFN and MoE stacks; the SSM rules wait for the recurrent mixers.
 
 Every rule checks divisibility against the mesh before it applies an axis; a
 dim that does not divide falls back to replication (recorded in the spec).
@@ -19,7 +20,8 @@ a tuple of axis names. The rules read only ``mesh.shape`` (axis name -> size)
 and ``mesh.axis_names``, so any object with those two serves as the mesh
 (``launch.mesh.AbstractMesh`` for shapes no machine here has).
 ``shard_leaf`` / ``unshard_leaf`` take the place of JAX's ``NamedSharding``:
-this rank's slice along the FSDP dim, and the all-gather back.
+this rank's slice along every sharded dim, and the all-gathers back.
+``model_parallel(mesh)`` is the TP context the layers read.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from repro_torch.core.collective import all_gather_dim
+from repro_torch.core.collective import ModelParallel, all_gather_dim
 
 Path = str
 
@@ -263,21 +265,48 @@ def fsdp_dim(spec: P) -> Optional[int]:
     return None
 
 
+def model_dim(spec: P) -> Optional[int]:
+    """Index of the dimension sharded over 'model' (the TP dim)."""
+    for i, entry in enumerate(spec):
+        if entry == "model" or (isinstance(entry, (tuple, list)) and "model" in entry):
+            return i
+    return None
+
+
+def _split_axes(spec: P, mesh):
+    """(dim, axis) of every mesh axis of size > 1 the spec splits a dim
+    over, major first: a dim sharded over ("pod", "data") is split by "pod",
+    then each part by "data"."""
+    out = []
+    for d, entry in enumerate(spec):
+        axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        out.extend((d, a) for a in axes if mesh_axis_size(mesh, a) > 1)
+    return out
+
+
 def shard_leaf(full: torch.Tensor, spec: P, mesh) -> torch.Tensor:
-    """This rank's slice of ``full`` along its FSDP dim (a contiguous copy),
-    or ``full`` itself for a leaf with none. Only "data" is split: the train
-    step runs no tensor parallelism."""
-    d = fsdp_dim(spec)
-    if d is None:
+    """This rank's slice of ``full`` along every dim its spec shards (a
+    contiguous copy), or ``full`` itself for a replicated leaf."""
+    split = _split_axes(spec, mesh)
+    if not split:
         return full
-    n = mesh.shape["data"]
-    return full.chunk(n, dim=d)[mesh.axis_index("data")].contiguous()
+    for d, a in split:
+        full = full.chunk(mesh.shape[a], dim=d)[mesh.axis_index(a)]
+    return full.contiguous()
 
 
 def unshard_leaf(local: torch.Tensor, spec: P, mesh) -> torch.Tensor:
-    """The full leaf from every data rank's slice (an all-gather over
-    "data"; every rank of the axis calls it)."""
-    d = fsdp_dim(spec)
-    if d is None:
-        return local
-    return all_gather_dim(local, d, mesh.group("data"))
+    """The full leaf from every rank's slice: one all-gather per axis the
+    spec names, minor first (every rank of the mesh calls it)."""
+    for d, a in reversed(_split_axes(spec, mesh)):
+        local = all_gather_dim(local, d, mesh.group(a))
+    return local
+
+
+def model_parallel(mesh) -> Optional[ModelParallel]:
+    """The TP context of ``mesh``: its "model" group and this rank's
+    coordinate there; None where the axis is absent or of size 1."""
+    n = mesh_axis_size(mesh, "model")
+    if n == 1:
+        return None
+    return ModelParallel(mesh.group("model"), mesh.axis_index("model"), n)

@@ -42,10 +42,23 @@ data-parallel replica and holds its shards of the state:
                    error-feedback residual takes its new value whether or
                    not the step commits, as in ``repro``.
 
-The step takes this rank's shard of the global batch (``Mesh.batch_index``)
-and updates the state it is given in place, leaf by leaf (JAX donates the
-state buffers), and returns it. Tensor parallelism over "model" is not
-ported: a mesh whose "model" axis is larger than 1 raises.
+Tensor parallelism over "model" (``repro`` leaves it to XLA's AUTO axis):
+each rank holds its "model" slices as well (``sharding.shard_leaf`` splits
+every axis of a spec) and the loss runs tensor parallel
+(``zoo.Model.loss(..., tp=...)``; ``collective.copy_to_model`` /
+``reduce_from_model`` around every split product, the vocab-parallel cross
+entropy), so every "model" rank of a replica holds the same loss and the
+gradients of its slices. The vote, the finiteness check and the clipping
+norm are those of the whole leaves: the squares and non-finite counts of
+"model"-split leaves are summed over "model" (replicated ones count once),
+so every "model" rank of a replica casts the same vote. The recurrent
+mixers have no TP port yet: a stack with a mamba, mlstm or slstm block on a
+"model" axis larger than 1 raises, as do KV heads that do not split whole.
+
+The step takes this rank's shard of the global batch (``Mesh.batch_index``;
+every "model" rank of a replica takes the same one) and updates the state
+it is given in place, leaf by leaf (JAX donates the state buffers), and
+returns it.
 """
 from __future__ import annotations
 
@@ -57,6 +70,7 @@ import torch.distributed as dist
 from repro_torch.core.collective import (GatherShard, all_gather_many, classic_track_commit,
                                          fast_quorum_size, psum, reduce_scatter_many,
                                          voted_psum)
+from repro_torch.models.transformer import check_tp
 from repro_torch.optim import adamw, compression
 from repro_torch.runtime import sharding as shd
 from repro_torch.tree import leaves, leaves_with_paths, tree_map, unflatten
@@ -68,13 +82,6 @@ class TrainState(NamedTuple):
     params: Params
     opt: adamw.OptState
     ef_residual: Optional[Params] = None  # error feedback (compress_pod only)
-
-
-def _check_mesh(mesh) -> None:
-    if shd.mesh_axis_size(mesh, "model") > 1:
-        raise ValueError(
-            f"mesh {mesh.shape}: tensor parallelism over 'model' is not ported yet (a later "
-            "slice of the port); train on a mesh whose 'model' axis has size 1")
 
 
 def state_specs(model, opt_cfg: adamw.AdamWConfig, mesh, compress_pod: bool = False) -> TrainState:
@@ -89,9 +96,9 @@ def state_specs(model, opt_cfg: adamw.AdamWConfig, mesh, compress_pod: bool = Fa
 def make_train_state(model, opt_cfg: adamw.AdamWConfig, gen: torch.Generator,
                      compress_pod: bool = False, mesh=None) -> TrainState:
     """Initialises the parameters from ``gen`` (every rank draws the same
-    full tree) and, on a mesh, keeps this rank's shard of each leaf; the
-    model then holds the shards. The optimizer state and the residual are
-    made from the shards."""
+    full tree) and, on a mesh, keeps this rank's shard of each leaf (over
+    "data" and "model"); the model then holds the shards. The optimizer
+    state and the residual are made from the shards."""
     params = model.init(gen)
     if mesh is not None:
         specs = shd.tree_param_specs(params, mesh)
@@ -145,7 +152,8 @@ def build_train_step(
     mesh=mesh)``); with ``compress_pod`` it carries ``ef_residual``."""
     if track not in ("fast", "classic"):
         raise ValueError(f"unknown track {track!r}")
-    _check_mesh(mesh)
+    check_tp(model.cfg, shd.mesh_axis_size(mesh, "model"))
+    tp = shd.model_parallel(mesh)
     dp_axes = shd.batch_axes(mesh)
     group = mesh.batch_group()
     fq = fast_quorum_size(dist.get_world_size(group))
@@ -160,6 +168,8 @@ def build_train_step(
         items = leaves_with_paths(params)
         specs = [spec_of[shd.path_str(p)] for p, _ in items]
         dims = [shd.fsdp_dim(s) for s in specs]
+        # Leaves this rank holds a "model" slice of (none without TP).
+        msplit = [tp is not None and shd.model_dim(s) is not None for s in specs]
         in_stack = [p[0] == "stack" for p, _ in items]
         # Leaves gathered up front: those outside the stack when streaming,
         # every leaf otherwise.
@@ -174,7 +184,7 @@ def build_train_step(
                     full[i] = t
         diff = [p.detach().requires_grad_(True) for p in full]
         del full
-        loss, metrics = model.loss(unflatten(params, diff), batch, gather_fn=gather_fn)
+        loss, metrics = model.loss(unflatten(params, diff), batch, gather_fn=gather_fn, tp=tp)
         grads = torch.autograd.grad(loss, diff, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, diff)]
         del diff
@@ -186,12 +196,24 @@ def build_train_step(
             # this replica's own, full-shaped.
             already = [fsdp_stream and s and d is not None for s, d in zip(in_stack, dims)]
             # --- Fast Raft vote on the pre-reduction leaves.
-            pre = [g for g, s in zip(grads, in_stack) if not (fsdp_stream and s)]
+            pre = [(g, m) for g, s, m in zip(grads, in_stack, msplit)
+                   if not (fsdp_stream and s)]
             finite = torch.isfinite(loss)
             sq = torch.zeros((), dtype=torch.float32, device=loss.device)
-            for g in pre:
-                finite = finite & torch.isfinite(g).all()
-                sq = sq + torch.sum(torch.square(g.float()))
+            if tp is not None:  # the "model"-split leaves' (sq, non-finite)
+                split = torch.zeros(2, dtype=torch.float32, device=loss.device)
+            for g, m in pre:
+                if m:
+                    split[0] += torch.sum(torch.square(g.float()))
+                    split[1] += (~torch.isfinite(g)).any().float()
+                else:
+                    finite = finite & torch.isfinite(g).all()
+                    sq = sq + torch.sum(torch.square(g.float()))
+            if tp is not None:
+                # The whole leaves' norm and finiteness: one vote per replica.
+                dist.all_reduce(split, group=tp.group)
+                finite = finite & (split[1] == 0)
+                sq = sq + split[0]
             vote = (finite & (torch.sqrt(sq) < vote_max_norm)).float()
             del pre
 
@@ -248,19 +270,33 @@ def build_train_step(
                 g.div_(denom.to(g.dtype))
 
             # Rollback condition: quorum AND finite reduced gradients on every
-            # shard. The global norm adds the FSDP shards' squares over "data".
-            # (Without FSDP leaves every leaf is the same on every rank.)
+            # shard. The global norm adds the FSDP shards' squares over "data"
+            # and the "model" slices' over "model" (a leaf split on both over
+            # both). (Without FSDP or TP every leaf is the same on every rank.)
             repl_sq = torch.zeros((), dtype=torch.float32, device=loss.device)
-            shard = torch.zeros(2, dtype=torch.float32, device=loss.device)  # (sq, non-finite)
-            for g, d in zip(red, dims):
+            # (sq of data-split leaves, non-finite[, sq of leaves split on both])
+            shard = torch.zeros(2 if tp is None else 3, dtype=torch.float32,
+                                device=loss.device)
+            if tp is not None:
+                model_sq = torch.zeros((), dtype=torch.float32, device=loss.device)
+            for g, d, m in zip(red, dims, msplit):
                 gs = torch.sum(torch.square(g.float()))
-                if d is None:
+                if m and d is not None:
+                    shard[2] += gs
+                elif m:
+                    model_sq = model_sq + gs
+                elif d is None:
                     repl_sq = repl_sq + gs
                 else:
                     shard[0] += gs
                 shard[1] += (~torch.isfinite(g)).any().float()
             if fsdp:
                 dist.all_reduce(shard, group=data_group if data_group is not None else group)
+            if tp is not None:
+                whole = torch.stack([model_sq + shard[2], shard[1]])
+                dist.all_reduce(whole, group=tp.group)
+                shard[1] = whole[1]
+                repl_sq = repl_sq + whole[0]  # with the "model" slices' squares
             committed = committed & (shard[1] == 0)
             grad_norm = torch.sqrt(repl_sq + shard[0])
 

@@ -7,13 +7,15 @@ consensus-committed checkpoints + straggler reports. ``train()`` is
 restartable: it restores the newest COMMITTED checkpoint and resumes from
 its step with the data pipeline re-addressed.
 
-Data parallelism runs over a ``(pod, data, model)`` mesh (``launch/mesh.py``;
-by default the (1, 1) host mesh of one process). Each rank holds its FSDP
-shards of the state (``runtime/spmd.py``) and takes shard p * D + d of the
-global batch (``Mesh.batch_index``, as ``P(("pod", "data"))`` splits it).
+Training runs over a ``(pod, data, model)`` mesh (``launch/mesh.py``; by
+default the (1, 1) host mesh of one process). Each rank holds its FSDP and
+tensor-parallel shards of the state (``runtime/spmd.py``) and takes shard
+p * D + d of the global batch (``Mesh.batch_index``, as ``P(("pod",
+"data"))`` splits it; the "model" ranks of a replica take the same one).
 Checkpoints keep ``repro``'s format of full leaves: a save gathers one leaf
-at a time and rank 0 writes it; a restore reads the full leaves and keeps
-this rank's shards, so a checkpoint written on one mesh restores on another.
+at a time over every axis its spec splits and rank 0 writes it; a restore
+reads the full leaves and keeps this rank's shards, so a checkpoint written
+on one mesh restores on another.
 The device is explicit (``"cuda"`` by default) and there is no fallback to
 the CPU.
 """

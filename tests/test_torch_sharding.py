@@ -187,17 +187,22 @@ def test_state_specs_match_repro(mesh, compress_pod):
 
 
 def test_train_step_and_trainer_refuse_tensor_parallelism():
-    """A mesh may have a "model" axis larger than 1 (the rules read it), but
-    the train step and the Trainer raise for it: tensor parallelism is not
-    ported yet."""
+    """Tensor parallelism over "model" runs for attention, dense-FFN and MoE
+    stacks; the train step and the Trainer raise, before any collective, for
+    what it does not cover yet: a recurrent block (xlstm-1.3b's mLSTM and
+    sLSTM, whose "model" rules wait for the next slice) and KV heads that do
+    not split whole (reduced qwen3-1.7b's 2 KV heads on 4 ranks, which
+    repro splits along the head dim)."""
     from repro_torch.optim import adamw
     from repro_torch.runtime import spmd
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
-    mesh = AbstractMesh.of((4, 2), ("data", "model"))
-    cfg = registry.get("qwen3-1.7b", reduced=True)
-    assert shd.tree_param_specs(zoo.build(cfg, device="cpu").param_shapes(), mesh)
-    with pytest.raises(ValueError, match="tensor parallelism"):
-        spmd.build_train_step(zoo.build(cfg, device="cpu"), adamw.AdamWConfig(), mesh)
-    with pytest.raises(ValueError, match="tensor parallelism"):
-        Trainer(TrainerConfig(arch=cfg, device="cpu"), mesh=mesh)
+    cases = ((AbstractMesh.of((4, 2), ("data", "model")), "xlstm-1.3b", "'mlstm' blocks"),
+             (AbstractMesh.of((1, 4), ("data", "model")), "qwen3-1.7b", "leaf 'wk'"))
+    for mesh, arch, what in cases:
+        cfg = registry.get(arch, reduced=True)
+        assert shd.tree_param_specs(zoo.build(cfg, device="cpu").param_shapes(), mesh)
+        with pytest.raises(NotImplementedError, match=what):
+            spmd.build_train_step(zoo.build(cfg, device="cpu"), adamw.AdamWConfig(), mesh)
+        with pytest.raises(NotImplementedError, match=what):
+            Trainer(TrainerConfig(arch=cfg, device="cpu"), mesh=mesh)
