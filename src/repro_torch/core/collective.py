@@ -35,6 +35,15 @@ Functions over the "model" group of a ``ModelParallel`` context):
   vocab_parallel_nll the cross entropy of vocab-parallel logits: the max
                      (one ``all_reduce``), then the sum of exps and the
                      target logit (one more); no rank holds the full logits.
+  exchange_model     a re-layout of columns over the group (one
+                     ``all_to_all_single``): each rank holds some columns of
+                     a global index space and receives the ones it asks
+                     for; the backward sends every gradient column back to
+                     its sender, which sums them in fp32 (a column several
+                     ranks asked for). An all-gather whose consumers differ
+                     per rank, or an all-to-all (Mamba's and the mLSTM's
+                     ``[x | z]`` projections, KV heads that do not split
+                     whole, the cache's head-dim slices).
 
 Each counts the collectives it issues and their bytes (``tp_counts``). A
 rematerialised region runs its forward again in the backward, so a
@@ -48,6 +57,7 @@ Trees are nested dicts of tensors (``repro_torch.tree``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, List, Tuple
 
@@ -276,7 +286,8 @@ class ModelParallel:
     size: int
 
 
-TP_OPS = ("copy_to_model", "reduce_from_model", "gather_from_model", "vocab_parallel_nll")
+TP_OPS = ("copy_to_model", "reduce_from_model", "gather_from_model", "vocab_parallel_nll",
+          "exchange_model")
 _tp_counts: Dict[str, List[int]] = {name: [0, 0] for name in TP_OPS}
 
 
@@ -402,3 +413,83 @@ def vocab_parallel_nll(tp: ModelParallel, logits: torch.Tensor, labels: torch.Te
     value as ``log_softmax`` + ``gather`` over the full logits, on every
     rank, and the gradient of the local slice."""
     return _VocabParallelNLL.apply(tp.group, logits, labels, tp.index * logits.shape[-1])
+
+
+# A set of columns: [start, stop) ranges of a global index space, in order.
+Ranges = Tuple[Tuple[int, int], ...]
+
+
+def tiles(n: int, size: int) -> Tuple[Ranges, ...]:
+    """Rank r's contiguous tile of ``n`` columns over ``size`` ranks (the
+    split of a leaf dim over "model")."""
+    return tuple(((r * n // size, (r + 1) * n // size),) for r in range(size))
+
+
+def _columns(ranges: Ranges) -> torch.Tensor:
+    if not ranges:
+        return torch.zeros(0, dtype=torch.long)
+    return torch.cat([torch.arange(a, b) for a, b in ranges])
+
+
+@functools.lru_cache(maxsize=None)
+def _exchange_plan(have: Tuple[Ranges, ...], want: Tuple[Ranges, ...], index: int, device: str):
+    """(columns to send, send sizes, receive sizes, where each received
+    column goes, columns received) for rank ``index``. A column held by
+    several ranks is sent by the lowest."""
+    n = max((b for rs in have for _, b in rs), default=0)
+    owner = torch.full((n,), -1, dtype=torch.long)
+    local = torch.zeros(n, dtype=torch.long)
+    for r in reversed(range(len(have))):
+        cols = _columns(have[r])
+        owner[cols] = r
+        local[cols] = torch.arange(len(cols))
+    send, send_sizes = [], []
+    for ranges in want:
+        cols = _columns(ranges)
+        if bool((owner[cols] < 0).any()):
+            raise ValueError(f"columns {ranges} are wanted but no rank holds them all")
+        mine = cols[owner[cols] == index]
+        send.append(local[mine])
+        send_sizes.append(len(mine))
+    src = owner[_columns(want[index])]
+    order = torch.argsort(src, stable=True)  # received grouped by sender, each in want order
+    recv_sizes = [int((src == s).sum()) for s in range(len(have))]
+    return (torch.cat(send).to(device), send_sizes, recv_sizes, order.to(device), len(src))
+
+
+class _ExchangeModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, plan, x):
+        send, send_sizes, recv_sizes, order, n_out = plan
+        ctx.group, ctx.plan, ctx.shape, ctx.dtype = group, plan, x.shape, x.dtype
+        rows = x.reshape(math.prod(x.shape[:-1]), x.shape[-1])
+        buf = rows.index_select(1, send).t().contiguous()  # (columns sent, rows)
+        _count("exchange_model", buf)
+        got = buf.new_empty((sum(recv_sizes), rows.shape[0]))
+        dist.all_to_all_single(got, buf, recv_sizes, send_sizes, group=group)
+        out = got.new_empty((n_out, rows.shape[0])).index_copy_(0, order, got)
+        return out.t().reshape(*x.shape[:-1], n_out)
+
+    @staticmethod
+    def backward(ctx, g):
+        send, send_sizes, recv_sizes, order, n_out = ctx.plan
+        rows = g.reshape(math.prod(g.shape[:-1]), n_out)
+        buf = rows.index_select(1, order).t().contiguous()
+        _count("exchange_model", buf)
+        back = buf.new_empty((sum(send_sizes), rows.shape[0]))
+        dist.all_to_all_single(back, buf, send_sizes, recv_sizes, group=ctx.group)
+        dx = torch.zeros((ctx.shape[-1], rows.shape[0]), dtype=torch.float32, device=g.device)
+        dx.index_add_(0, send, back.float())
+        return None, None, dx.t().to(ctx.dtype).reshape(ctx.shape)
+
+
+def exchange_model(tp: ModelParallel, x: torch.Tensor, have: Tuple[Ranges, ...],
+                   want: Tuple[Ranges, ...]) -> torch.Tensor:
+    """The columns ``want[tp.index]`` (last dim, in order) of a global index
+    space of which each rank r holds ``have[r]`` in ``x``'s last dim: one
+    ``all_to_all_single`` over "model", each wanted column sent by its
+    holder. The gradient of a column goes back to its sender and is summed
+    there in fp32, so a column several ranks use gets all their
+    contributions (consumers that differ per rank, as in a split region)."""
+    plan = _exchange_plan(have, want, tp.index, str(x.device))
+    return _ExchangeModel.apply(tp.group, plan, x)

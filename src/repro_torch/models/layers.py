@@ -17,15 +17,25 @@ Tensor parallelism (``tp``, a ``collective.ModelParallel``; None on one
 rank): a layer computes on this rank's slices of its leaves, as the sharding
 rules cut them, and reads what it holds from the local shapes (a leaf that
 does not divide the "model" axis stays whole). Attention splits its heads
-(wq / wk / wv column-parallel, wo row-parallel), the dense FFN its hidden
-dim (w_gate / w_up / b_up column-parallel, w_down row-parallel, b_down added
-once after the sum); ``collective.copy_to_model`` opens each region and
-``reduce_from_model`` closes it. The replicated leaves used inside a region
-(qk-norm scales, a whole wk / wv) pass through ``copy_to_model`` too, so
-their gradients are the whole sums on every rank.
+(wq / wk / wv column-parallel, wo row-parallel; ``head_split``), the dense
+FFN its hidden dim (w_gate / w_up / b_up column-parallel, w_down
+row-parallel, b_down added once after the sum); ``collective.copy_to_model``
+opens each region and ``reduce_from_model`` closes it. The replicated leaves
+used inside a region (qk-norm scales, a whole wk / wv) pass through
+``copy_to_model`` too, so their gradients are the whole sums on every rank.
+Where wk's slice is not whole KV heads, ``collective.exchange_model`` brings
+every KV head to every rank, and the cache keeps this rank's slice of each
+head's dims (``sharding.cache_spec``), from which a cached step brings
+together the heads its queries read. Query heads that do not cover whole
+GQA groups are padded with zero heads, so K1 and K4 keep their mapping of
+query head i to KV head i // (Hq / Hkv) and launch once a layer; where wq's
+slice is not whole heads, its columns are exchanged to heads and the heads'
+outputs back to wo's rows.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -33,7 +43,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.collective import ModelParallel, copy_to_model, reduce_from_model
+from repro_torch.core.collective import (ModelParallel, Ranges, copy_to_model, exchange_model,
+                                         reduce_from_model, tiles)
 from repro_torch.kernels import ops
 
 Params = Dict[str, Any]
@@ -121,41 +132,111 @@ def init_attention(cfg: ArchConfig, gen: torch.Generator, dtype=torch.bfloat16) 
     return p
 
 
-def local_kv_heads(cfg: ArchConfig, n_model: int) -> int:
-    """The KV heads a rank holds (and caches) on a "model" axis of
-    ``n_model``: ``n_kv_heads / n_model`` where wk splits into whole heads,
-    all of them where wk does not divide the axis. A slice of wk that is not
-    whole heads (``repro`` then splits the head dim, ``sharding.py``'s cache
-    rule) raises."""
-    if n_model == 1 or cfg.kv_dim % n_model:
-        return cfg.n_kv_heads
-    if cfg.n_kv_heads % n_model:
+@dataclasses.dataclass(frozen=True)
+class HeadSplit:
+    """How rank ``index`` of a "model" axis computes attention, where wq
+    splits over it (``head_split``):
+
+      q      [qa, qb): the query heads it attends with. Its wq columns are
+             exactly these heads where they split whole; otherwise (``q_moves``)
+             they are exchanged to heads, and the heads' outputs back to wo's
+             rows, over "model".
+      kv     [lo, hi): the KV heads those queries read.
+      pad    dummy (zero) query heads before / after its own, so that every
+             KV head in [lo, hi) has a whole GQA group: the kernels map query
+             head i to KV head i // (Hq / Hkv). Their outputs are dropped.
+      wk     "heads": wk's slice is the KV heads [lo, hi); "whole": wk stays
+             whole (it does not divide the axis); "cols": a slice that is not
+             whole heads, exchanged so that every rank has every KV head.
+      cache  the cache's layout, as ``sharding.cache_spec`` places it:
+             "heads" (Hkv / M heads), "dims" (every head, Dh / M of its dims),
+             "whole"."""
+    q: Tuple[int, int]
+    kv: Tuple[int, int]
+    pad: Tuple[int, int]
+    q_moves: bool
+    wk: str
+    cache: str
+
+
+def heads_of_tile(n_heads: int, size: int, index: int) -> Tuple[int, int]:
+    """[a, b): the heads whose first column lies in rank ``index``'s tile of
+    ``n_heads`` heads' columns over ``size`` ranks (the tile's own heads
+    where they split whole; none on some ranks where heads are fewer)."""
+    return -(-index * n_heads // size), -(-(index + 1) * n_heads // size)
+
+
+@functools.lru_cache(maxsize=None)
+def head_split(cfg: ArchConfig, n_model: int, index: int) -> HeadSplit:
+    """``HeadSplit`` of rank ``index``: the query heads ``heads_of_tile``
+    gives it. Raises where a rank would hold none."""
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    qa, qb = heads_of_tile(hq, n_model, index)
+    if qa == qb:
         raise NotImplementedError(
-            f"{cfg.name}: leaf 'wk' ({cfg.n_kv_heads} KV heads of {cfg.head_dim}) splits over "
-            f"a 'model' axis of {n_model} into {cfg.n_kv_heads / n_model:g} heads a rank; "
-            f"splitting the head dim is not ported yet")
-    return cfg.n_kv_heads // n_model
+            f"{cfg.name}: {hq} query heads on a 'model' axis of {n_model} leave rank {index} "
+            "without a head")
+    group = hq // hkv
+    lo, hi = qa // group, -(-qb // group)
+    pad = (0, 0) if hi - lo == 1 else (qa - lo * group, hi * group - qb)
+    if cfg.kv_dim % n_model:
+        wk = "whole"
+    elif hkv % n_model == 0:
+        wk = "heads"
+    else:
+        wk = "cols"
+    cache = ("heads" if hkv % n_model == 0 else
+             "dims" if dh % n_model == 0 else "whole")
+    return HeadSplit((qa, qb), (lo, hi), pad, (cfg.q_dim // n_model) % dh != 0, wk, cache)
 
 
-def _kv_heads_used(cfg: ArchConfig, hq: int, tp: ModelParallel) -> Tuple[int, int]:
-    """[lo, hi) of the KV heads that this rank's ``hq`` query heads read,
-    where wq splits over "model" and wk / wv stay whole."""
-    group = cfg.n_heads // cfg.n_kv_heads
-    if hq % group and group % hq:
-        raise NotImplementedError(
-            f"{cfg.name}: {hq} query heads a rank on a 'model' axis of {tp.size} do not "
-            f"cover whole GQA groups of {group}, with leaf 'wk' replicated")
-    lo = tp.index * hq // group
-    return lo, lo + max(1, hq // group)
+def attn_cache_shape(cfg: ArchConfig, batch: int, max_len: int, n_model: int = 1):
+    """(B, S, Hkv, Dh) of a rank's attention cache, as ``cache_spec``
+    places it: the KV heads split over "model" where they divide it, else
+    their head dim, else the cache is whole."""
+    h, d = cfg.n_kv_heads, cfg.head_dim
+    if n_model > 1 and h % n_model == 0:
+        h //= n_model
+    elif n_model > 1 and d % n_model == 0:
+        d //= n_model
+    return (batch, max_len, h, d)
 
 
-def _project_qkv(cfg: ArchConfig, p: Params, x: torch.Tensor, positions: torch.Tensor):
+def _head_cols(heads: Tuple[int, int], dh: int, offset: int = 0) -> Ranges:
+    return ((offset + heads[0] * dh, offset + heads[1] * dh),)
+
+
+def _kv_layout(cfg: ArchConfig, tp: ModelParallel, cache: bool):
+    """(have, want) of K and V side by side ([K | V] columns): from wk's
+    column tiles to every head ("cols" for the projections), or from the
+    cache's head-dim slices to each rank's heads [lo, hi)."""
+    kv, dh, M = cfg.kv_dim, cfg.head_dim, tp.size
+    if not cache:
+        have = tuple(t + tuple((a + kv, b + kv) for a, b in t) for t in tiles(kv, M))
+        return have, (((0, 2 * kv),),) * M
+    w = dh // M
+    have = tuple(tuple((o + h * dh + r * w, o + h * dh + (r + 1) * w)
+                       for o in (0, kv) for h in range(cfg.n_kv_heads)) for r in range(M))
+    want = tuple(_head_cols(head_split(cfg, M, r).kv, dh) + _head_cols(head_split(cfg, M, r).kv,
+                                                                       dh, kv)
+                 for r in range(M))
+    return have, want
+
+
+def _project_qkv(cfg: ArchConfig, p: Params, x: torch.Tensor, positions: torch.Tensor,
+                 tp: Optional[ModelParallel] = None, sp: Optional[HeadSplit] = None):
     B, T, _ = x.shape
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if sp is not None and sp.q_moves:  # wq's columns to whole heads
+        q = exchange_model(tp, q, tiles(cfg.q_dim, tp.size),
+                           tuple(_head_cols(head_split(cfg, tp.size, r).q, cfg.head_dim)
+                                 for r in range(tp.size)))
+    if sp is not None and sp.wk == "cols":  # wk's columns to every KV head
+        k, v = exchange_model(tp, torch.cat([k, v], -1), *_kv_layout(cfg, tp, False)).chunk(2, -1)
     # The heads this rank holds: all of them on one rank.
     q = q.reshape(B, T, -1, cfg.head_dim)
     k = k.reshape(B, T, -1, cfg.head_dim)
@@ -181,8 +262,8 @@ def attention(
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Full attention: the uncached forward when cache is None; a cached
     step of T tokens written at ``cache_pos`` otherwise (prefill: T = the
-    prompt, cache_pos 0; decode: T = 1). Under ``tp`` on this rank's heads,
-    the output summed over "model".
+    prompt, cache_pos 0; decode: T = 1). Under ``tp`` on this rank's heads
+    (``head_split``), the output summed over "model".
 
     ``cache_pos`` is one int for the whole batch, as ``Model.decode_step``
     uses it. K and V are written into the cache IN PLACE by slice assignment,
@@ -192,33 +273,43 @@ def attention(
     if positions is None:
         start = 0 if cache is None else int(cache_pos)
         positions = torch.arange(start, start + T, device=x.device)[None, :].expand(B, T)
-    split = tp is not None and p["wq"].shape[-1] < cfg.q_dim
-    kv = None  # [lo, hi) of the KV heads this rank's queries read, where wk is whole
-    if split:
+    sp = None
+    if tp is not None and p["wq"].shape[-1] < cfg.q_dim:
+        sp = head_split(cfg, tp.size, tp.index)
         p = dict(p)
         whole = [k for k in ("q_norm", "k_norm") if k in p]
-        if p["wk"].shape[-1] == cfg.kv_dim:
+        if sp.wk == "whole":
             whole += [k for k in ("wk", "wv", "bk", "bv") if k in p]
-            kv = _kv_heads_used(cfg, p["wq"].shape[-1] // cfg.head_dim, tp)
-        else:
-            local_kv_heads(cfg, tp.size)  # raises for a slice of wk that is not whole heads
         x, *leaves = copy_to_model(tp, x, *(p[k] for k in whole))
         p.update(zip(whole, leaves))
-    q, k, v = _project_qkv(cfg, p, x, positions)
+    q, k, v = _project_qkv(cfg, p, x, positions, tp, sp)
+    if sp is not None and sp.pad != (0, 0):
+        q = F.pad(q, (0, 0, *sp.pad))
+    lo, hi = (0, k.shape[2]) if sp is None or sp.wk == "heads" else sp.kv
 
     if cache is None:
-        if kv is not None:
-            k, v = k[:, :, kv[0]:kv[1]], v[:, :, kv[0]:kv[1]]
-        out = ops.flash_attention(q, k, v, causal=True)
+        out = ops.flash_attention(q, k[:, :, lo:hi], v[:, :, lo:hi], causal=True)
         new_cache = None
     else:
         idx = int(cache_pos)
         k_cache, v_cache = cache["k"], cache["v"]
-        k_cache[:, idx:idx + T] = k
-        v_cache[:, idx:idx + T] = v
-        if kv is not None:  # the cache holds every KV head, as its spec says
-            k_cache = k_cache[:, :, kv[0]:kv[1]].contiguous()
-            v_cache = v_cache[:, :, kv[0]:kv[1]].contiguous()
+        if sp is not None and sp.cache == "dims":  # this rank's head-dim slice of every head
+            w = cfg.head_dim // tp.size
+            k_cache[:, idx:idx + T] = k[..., tp.index * w:(tp.index + 1) * w]
+            v_cache[:, idx:idx + T] = v[..., tp.index * w:(tp.index + 1) * w]
+            if idx:  # the earlier keys and values: this rank's KV heads, brought together
+                kv = torch.cat([k_cache[:, :idx + T], v_cache[:, :idx + T]], 2)
+                kv = exchange_model(tp, kv.reshape(B, idx + T, -1), *_kv_layout(cfg, tp, True))
+                k_cache, v_cache = kv.reshape(B, idx + T, 2 * (hi - lo), -1).chunk(2, 2)
+            else:
+                k_cache, v_cache = k[:, :, lo:hi], v[:, :, lo:hi]
+        else:
+            k_cache[:, idx:idx + T] = k
+            v_cache[:, idx:idx + T] = v
+            if (lo, hi) != (0, k_cache.shape[2]):  # a whole cache: the heads this rank reads
+                k_cache = k_cache[:, :, lo:hi]
+                v_cache = v_cache[:, :, lo:hi]
+        k_cache, v_cache = k_cache.contiguous(), v_cache.contiguous()
         # Causal over the cache: query t (global position idx+t) sees keys
         # [0, idx+t]; kv_len hides never-written slots.
         if T == 1:
@@ -228,15 +319,22 @@ def attention(
                                       q_offset=idx, kv_len=idx + T)
         new_cache = cache
 
-    y = out.reshape(B, T, -1) @ p["wo"]
-    if split:
+    if sp is not None and sp.pad != (0, 0):
+        out = out[:, :, sp.pad[0]:out.shape[2] - sp.pad[1]]
+    out = out.reshape(B, T, -1)
+    if sp is not None and sp.q_moves:  # the heads' outputs back to wo's rows
+        out = exchange_model(tp, out, tuple(_head_cols(head_split(cfg, tp.size, r).q,
+                                                       cfg.head_dim) for r in range(tp.size)),
+                             tiles(cfg.q_dim, tp.size))
+    y = out @ p["wo"]
+    if sp is not None:
         y = reduce_from_model(tp, y)
     return y, new_cache
 
 
 def init_attn_cache(cfg: ArchConfig, batch: int, max_len: int, device,
                     dtype=torch.bfloat16, tp: Optional[ModelParallel] = None) -> Params:
-    shape = (batch, max_len, local_kv_heads(cfg, 1 if tp is None else tp.size), cfg.head_dim)
+    shape = attn_cache_shape(cfg, batch, max_len, 1 if tp is None else tp.size)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 

@@ -31,6 +31,17 @@ after it (the same forward; no 0 * inf in the gradient of the masked half);
 the sLSTM adds its gate biases to the input projections before the
 recurrent product (repro adds them after), and runs its four gates' products
 as one.
+
+Tensor parallelism (``tp``, a ``collective.ModelParallel``; None on one
+rank): each mixer computes on this rank's slices of its leaves as
+``runtime/sharding.py`` cuts them, with the region operators of
+``core/collective.py``. Mamba runs its tile of the d_in channels, the mLSTM
+its rows of d_k (q, k and the state; h_num and n·q summed over "model"),
+the sLSTM the recurrence of its heads; ``[x | z]``-style projections, whose
+column tiles are not the channels a rank runs, are exchanged. The states
+follow ``sharding.cache_spec`` but for the sLSTM's, held by heads
+(ROADMAP C). Every replicated leaf or value that a rank uses a part of
+passes ``copy_to_model``, so the gradients are those of one rank.
 """
 from __future__ import annotations
 
@@ -41,7 +52,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, SSMConfig
-from repro_torch.models.layers import _dense_init
+from repro_torch.core.collective import (ModelParallel, Ranges, copy_to_model, exchange_model,
+                                         reduce_from_model, tiles)
+from repro_torch.models.layers import _dense_init, heads_of_tile
 
 Params = Dict[str, Any]
 
@@ -54,6 +67,18 @@ def _ssm(cfg: ArchConfig) -> SSMConfig:
 
 def _normal(gen: torch.Generator, shape) -> torch.Tensor:
     return torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
+
+
+def _local(n: int, tp: Optional[ModelParallel]) -> int:
+    """A dim's size on this rank: split over "model" where it divides."""
+    return n // tp.size if tp is not None and n % tp.size == 0 else n
+
+
+def _halves(n: int, want: Tuple[Ranges, ...], size: int):
+    """(have, want) of a ``[first | second]`` projection of ``2 n`` columns
+    split in tiles over "model", where rank r wants ``want[r]`` of each half."""
+    return (tiles(2 * n, size),
+            tuple(w + tuple((a + n, b + n) for a, b in w) for w in want))
 
 
 # =============================================================== Mamba (S6)
@@ -127,28 +152,42 @@ def apply_mamba(
     x: torch.Tensor,
     state: Optional[Params] = None,
     chunk: Optional[int] = None,
+    tp: Optional[ModelParallel] = None,
 ):
     """Training / prefill / multi-token cached step. x: (B, T, d_model).
-    Returns (y, new_state); new_state is None when state is None (training)."""
+    Returns (y, new_state); new_state is None when state is None (training).
+
+    Under ``tp``, where the leaves split over "model", this rank runs its
+    tile of the d_in channels: in_proj's column tile of ``[x | z]`` is
+    exchanged for its channels of x and of z, x_proj's partial (B, T, R+2N)
+    is summed (and copied back in: dt, B and C feed this rank's channels),
+    out_proj's partial is summed."""
     s = _ssm(cfg)
     d_in, dt_rank, N = mamba_dims(cfg)
     B, T, _ = x.shape
     chunk = chunk or min(T, s.chunk_size)
     if T % chunk:
         raise ValueError(f"sequence length {T} is not a multiple of the chunk {chunk}")
+    split = tp is not None and p["in_proj"].shape[-1] < 2 * d_in
 
+    if split:
+        (x,) = copy_to_model(tp, x)
     xz = x @ p["in_proj"]
+    if split:
+        xz = exchange_model(tp, xz, *_halves(d_in, tiles(d_in, tp.size), tp.size))
     xb, z = torch.chunk(xz, 2, dim=-1)
     xb, conv_state = _mamba_conv(p, xb, None if state is None else state["conv"])
     xb = F.silu(xb)
 
     dtbc = xb @ p["x_proj"]
+    if split:
+        (dtbc,) = copy_to_model(tp, reduce_from_model(tp, dtbc))
     dt, Bm, Cm = torch.split(dtbc, [dt_rank, N, N], dim=-1)
     delta = F.softplus((dt @ p["dt_proj"]).float() + p["dt_bias"][None, None, :])
     A = -torch.exp(p["A_log"])  # (d_in, N)
 
     xb32, Bm32, Cm32 = xb.float(), Bm.float(), Cm.float()
-    h = (torch.zeros((B, d_in, N), dtype=torch.float32, device=x.device)
+    h = (torch.zeros((B, xb.shape[-1], N), dtype=torch.float32, device=x.device)
          if state is None else state["h"])
     ys = []
     for i in range(0, T, chunk):
@@ -161,23 +200,30 @@ def apply_mamba(
     y = torch.cat(ys, dim=1)
     y = y + xb32 * p["D"][None, None, :]
     y = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
+    if split:
+        y = reduce_from_model(tp, y)
     new_state = None if state is None else {"conv": conv_state, "h": h}
     return y, new_state
 
 
-def init_mamba_state(cfg: ArchConfig, batch: int, device, dtype=torch.bfloat16) -> Params:
+def init_mamba_state(cfg: ArchConfig, batch: int, device, dtype=torch.bfloat16,
+                     tp: Optional[ModelParallel] = None) -> Params:
+    """Under ``tp`` this rank's channels, as ``sharding.cache_spec`` splits
+    the state: ``conv`` (B, K-1, d_in / M), ``h`` (B, d_in / M, N)."""
     s = _ssm(cfg)
     d_in, _, N = mamba_dims(cfg)
+    d_in = _local(d_in, tp)
     return {
         "conv": torch.zeros((batch, s.d_conv - 1, d_in), dtype=dtype, device=device),
         "h": torch.zeros((batch, d_in, N), dtype=torch.float32, device=device),
     }
 
 
-def step_mamba(cfg: ArchConfig, p: Params, x: torch.Tensor, state: Params):
+def step_mamba(cfg: ArchConfig, p: Params, x: torch.Tensor, state: Params,
+               tp: Optional[ModelParallel] = None):
     """Cached step (T >= 1): the chunked path with the carried state, in one
     chunk."""
-    return apply_mamba(cfg, p, x, state=state, chunk=x.shape[1])
+    return apply_mamba(cfg, p, x, state=state, chunk=x.shape[1], tp=tp)
 
 
 # ================================================================== mLSTM
@@ -209,58 +255,117 @@ def init_mlstm(cfg: ArchConfig, gen: torch.Generator, dtype=torch.bfloat16) -> P
     }
 
 
-def init_mlstm_state(cfg: ArchConfig, batch: int, device) -> Params:
+def init_mlstm_state(cfg: ArchConfig, batch: int, device,
+                     tp: Optional[ModelParallel] = None) -> Params:
+    """Under ``tp`` this rank's rows of d_k, as ``sharding.cache_spec``
+    splits the state: ``C`` (B, H, dh / M, dh), ``n`` (B, H, dh / M); ``m``
+    whole."""
     d_in, dh = mlstm_dims(cfg)
     H = cfg.n_heads
+    dk = _local(dh, tp)
     return {
-        "C": torch.zeros((batch, H, dh, dh), dtype=torch.float32, device=device),
-        "n": torch.zeros((batch, H, dh), dtype=torch.float32, device=device),
+        "C": torch.zeros((batch, H, dk, dh), dtype=torch.float32, device=device),
+        "n": torch.zeros((batch, H, dk), dtype=torch.float32, device=device),
         "m": torch.full((batch, H), NEG_INF, dtype=torch.float32, device=device),
     }
 
 
-def _mlstm_chunk(q, k, v, li, lf, state):
-    """Stabilized chunk-parallel mLSTM.
-
-    q,k,v: (B,H,c,dh) fp32; li,lf: (B,H,c) fp32 log gates;
-    state: dict(C,n,m). Returns (h (B,H,c,dh), new_state).
-    """
-    B, H, c, dh = q.shape
+def _mlstm_decay(li, lf, m_state):
+    """The gates' part of a stabilized chunk: li, lf (B,H,c) fp32 log gates,
+    m_state (B,H) the carried stabilizer. Returns the stabilizer per token
+    ``m_t`` and at the chunk's end ``m_out``, and the weights that the
+    state's part combines: ``D`` the intra-chunk decays, ``w_in`` the
+    carried state's weight per token, ``w_state`` / ``w_tok`` the state
+    update's."""
+    c = li.shape[-1]
     Fc = torch.cumsum(lf, dim=-1)                     # inclusive: sum_{r<=t} lf_r
     g = li - Fc                                       # g_s = li_s - F_s
     m_intra = torch.cummax(g, dim=-1).values          # max_{s<=t} g_s
-    m_state = state["m"]                              # reference stabilizer
     m_t = Fc + torch.maximum(m_state[..., None], m_intra)  # (B,H,c)
 
     # Intra-chunk decay weights: D_{ts} = exp(F_t + g_s - m_t) for s <= t.
     logD = Fc[..., :, None] + g[..., None, :] - m_t[..., :, None]
-    mask = torch.ones((c, c), dtype=torch.bool, device=q.device).tril()
+    mask = torch.ones((c, c), dtype=torch.bool, device=li.device).tril()
     D = torch.exp(logD.masked_fill(~mask, -math.inf))
-    kq = (q @ k.transpose(-1, -2)) / math.sqrt(dh)    # (B,H,t,s)
-    scores = kq * D
     # Inter-chunk contribution of the carried state, same stabilization.
     w_in = torch.exp(Fc + m_state[..., None] - m_t)   # (B,H,c)
-    h_num = scores @ v + w_in[..., None] * ((q / math.sqrt(dh)) @ state["C"])
-    # Normalizer n_t · q_t (k·q weighted by the same decays).
-    nq_total = torch.sum(scores, dim=-1) + w_in * torch.einsum(
-        "bhd,bhtd->bht", state["n"], q) / math.sqrt(dh)
-    denom = torch.maximum(torch.abs(nq_total), torch.exp(-m_t))
-    h = h_num / denom[..., None]
 
     # State update to end of chunk (t = c).
     F_c = Fc[..., -1:]                                # (B,H,1)
     m_out = F_c[..., 0] + torch.maximum(m_state, torch.amax(g, dim=-1))
     w_state = torch.exp(F_c[..., 0] + m_state - m_out)  # (B,H)
     w_tok = torch.exp(F_c + g - m_out[..., None])       # (B,H,c)
+    return {"m_t": m_t, "m_out": m_out, "D": D, "w_in": w_in, "w_state": w_state,
+            "w_tok": w_tok}
+
+
+_DECAYS = ("D", "w_in", "w_state", "w_tok")
+
+
+def _mlstm_part(q, k, v, w, C, n):
+    """The state's part of a stabilized chunk: q, k (B,H,c,dk) fp32, v
+    (B,H,c,dh); w: ``_mlstm_decay``'s weights; C (B,H,dk,dh), n (B,H,dk) the
+    carried state. Returns (h_num (B,H,c,dh), n·q (B,H,c), C_out, n_out).
+    Under TP, d_k is this rank's rows: h_num and n·q are partial sums over
+    "model", the state its rows."""
+    dh = v.shape[-1]
+    kq = (q @ k.transpose(-1, -2)) / math.sqrt(dh)    # (B,H,t,s)
+    scores = kq * w["D"]
+    h_num = scores @ v + w["w_in"][..., None] * ((q / math.sqrt(dh)) @ C)
+    # Normalizer n_t · q_t (k·q weighted by the same decays).
+    nq_total = torch.sum(scores, dim=-1) + w["w_in"] * torch.einsum(
+        "bhd,bhtd->bht", n, q) / math.sqrt(dh)
     # einsum("bhs,bhsd,bhse->bhde"), with nothing of size (B,H,c,dh,dh) built.
-    C_out = (w_state[..., None, None] * state["C"]
-             + (w_tok[..., None] * k).transpose(-1, -2) @ v)
-    n_out = w_state[..., None] * state["n"] + torch.einsum("bhs,bhsd->bhd", w_tok, k)
-    return h, {"C": C_out, "n": n_out, "m": m_out}
+    C_out = (w["w_state"][..., None, None] * C
+             + (w["w_tok"][..., None] * k).transpose(-1, -2) @ v)
+    n_out = w["w_state"][..., None] * n + torch.einsum("bhs,bhsd->bhd", w["w_tok"], k)
+    return h_num, nq_total, C_out, n_out
 
 
-def apply_mlstm(cfg: ArchConfig, p: Params, x: torch.Tensor, state: Optional[Params] = None):
-    """Returns (y, new_state); new_state is None when state is None."""
+def _mlstm_h(h_num, nq, m_t):
+    denom = torch.maximum(torch.abs(nq), torch.exp(-m_t))
+    return h_num / denom[..., None]
+
+
+def _mlstm_chunks(q, k, v, li, lf, st, c, tp: Optional[ModelParallel] = None):
+    """The chunks of c tokens in order, from the state ``st``: every chunk's
+    gate weights first, then each chunk's state part, then h. Under ``tp``
+    q, k and the state hold this rank's d_k rows: the gate weights enter
+    this rank's part through one ``copy_to_model``, and all the chunks'
+    h_num and n·q are summed over "model" at once. Returns (h (B,H,T,dh),
+    the new state)."""
+    T = q.shape[2]
+    decays, m = [], st["m"]
+    for i in range(0, T, c):
+        decays.append(_mlstm_decay(li[..., i:i + c], lf[..., i:i + c], m))
+        m = decays[-1]["m_out"]
+    flat = [d[k] for d in decays for k in _DECAYS]
+    if tp is not None:
+        flat = copy_to_model(tp, *flat)
+    C, n, parts = st["C"], st["n"], []
+    for j, i in enumerate(range(0, T, c)):
+        w = dict(zip(_DECAYS, flat[j * len(_DECAYS):(j + 1) * len(_DECAYS)]))
+        num, nq, C, n = _mlstm_part(q[:, :, i:i + c], k[:, :, i:i + c], v[:, :, i:i + c],
+                                    w, C, n)
+        parts.append(torch.cat([num, nq[..., None]], dim=-1))
+    both = torch.cat(parts, dim=2)                    # (B,H,T,dh+1)
+    if tp is not None:
+        both = reduce_from_model(tp, both)
+    h = _mlstm_h(both[..., :-1], both[..., -1], torch.cat([d["m_t"] for d in decays], dim=-1))
+    return h, {"C": C, "n": n, "m": m}
+
+
+def apply_mlstm(cfg: ArchConfig, p: Params, x: torch.Tensor, state: Optional[Params] = None,
+                tp: Optional[ModelParallel] = None):
+    """Returns (y, new_state); new_state is None when state is None.
+
+    Under ``tp``, where the leaves split over "model" (the block-diagonal
+    q / k / v on their contraction dim, the state on d_k), this rank takes
+    from up's column tile of ``[x | z]`` its slice of every head's x
+    channels and its tile of z (one exchange); its q, k, v partials are
+    summed over "model"; it runs the chunks on its d_k rows of q, k and the
+    state, whose h_num and n·q partials are summed over "model" once for all
+    chunks; the group norm runs on every head, and down on its rows."""
     s = _ssm(cfg)
     d_in, dh = mlstm_dims(cfg)
     H = cfg.n_heads
@@ -268,29 +373,44 @@ def apply_mlstm(cfg: ArchConfig, p: Params, x: torch.Tensor, state: Optional[Par
     c = min(T, s.chunk_size)
     if T % c:
         raise ValueError(f"sequence length {T} is not a multiple of the chunk {c}")
+    split = tp is not None and p["wq_blk"].shape[-2] < dh
+    M, r = (tp.size, tp.index) if split else (1, 0)
+    w = dh // M
 
-    up = x @ p["up"]
-    xb, z = torch.chunk(up, 2, dim=-1)
-    xh = xb.reshape(B, T, H, dh)
-    q, k, v = (torch.einsum("bthd,hde->bhte", xh, p[name]).float()
-               for name in ("wq_blk", "wk_blk", "wv_blk"))
+    xc = x
+    if split:
+        (xc,) = copy_to_model(tp, x)
+    up = xc @ p["up"]
+    if split:
+        # Rank r: columns [r w, (r + 1) w) of every head's x, and its tile of z.
+        want = tuple(tuple((h * dh + i * w, h * dh + (i + 1) * w) for h in range(H))
+                     + tuple((a + d_in, b + d_in) for a, b in tiles(d_in, M)[i])
+                     for i in range(M))
+        up = exchange_model(tp, up, tiles(2 * d_in, M), want)
+    xb, z = up.split([H * w, up.shape[-1] - H * w], dim=-1)
+    xh = xb.reshape(B, T, H, w)
+    qkv = [torch.einsum("bthd,hde->bhte", xh, p[name]) for name in ("wq_blk", "wk_blk", "wv_blk")]
+    if split:
+        (part,) = copy_to_model(tp, reduce_from_model(tp, torch.stack(qkv), torch.float32))
+        qkv = part.unbind(0)
+    rows = slice(r * w, (r + 1) * w)
+    q, k, v = qkv[0].float()[..., rows], qkv[1].float()[..., rows], qkv[2].float()
     gates = x.float() @ p["w_gates"] + p["b_gates"][None, None]
     li, lf = torch.chunk(gates, 2, dim=-1)            # (B,T,H)
     li = li.transpose(1, 2)
     lf = F.logsigmoid(lf.transpose(1, 2))
 
-    st = init_mlstm_state(cfg, B, x.device) if state is None else state
-    hs = []
-    for i in range(0, T, c):
-        h, st = _mlstm_chunk(q[:, :, i:i + c], k[:, :, i:i + c], v[:, :, i:i + c],
-                             li[..., i:i + c], lf[..., i:i + c], st)
-        hs.append(h)
-    h = torch.cat(hs, dim=2)                          # (B,H,T,dh)
+    st = init_mlstm_state(cfg, B, x.device, tp if split else None) if state is None else state
+    h, st = _mlstm_chunks(q, k, v, li, lf, st, c, tp if split else None)
     h = h.transpose(1, 2).reshape(B, T, d_in)
 
     # Headwise group norm, output gate, down projection.
     h = _groupnorm(h, H, p["gn_scale"]).to(x.dtype)
-    y = (h * F.silu(z)) @ p["down"]
+    if split:
+        (h,) = copy_to_model(tp, h)
+    y = (h[..., r * z.shape[-1]:(r + 1) * z.shape[-1]] * F.silu(z)) @ p["down"]
+    if split:
+        y = reduce_from_model(tp, y)
     return y, (None if state is None else st)
 
 
@@ -303,9 +423,10 @@ def _groupnorm(h: torch.Tensor, n_groups: int, scale: torch.Tensor, eps=1e-6) ->
     return hn.reshape(B, T, d) * scale[None, None].float()
 
 
-def step_mlstm(cfg: ArchConfig, p: Params, x: torch.Tensor, state: Params):
+def step_mlstm(cfg: ArchConfig, p: Params, x: torch.Tensor, state: Params,
+               tp: Optional[ModelParallel] = None):
     """Cached step (T >= 1) via the chunked path."""
-    return apply_mlstm(cfg, p, x, state=state)
+    return apply_mlstm(cfg, p, x, state=state, tp=tp)
 
 
 # ================================================================== sLSTM
@@ -334,8 +455,15 @@ def init_slstm(cfg: ArchConfig, gen: torch.Generator, dtype=torch.bfloat16) -> P
     return p
 
 
-def init_slstm_state(cfg: ArchConfig, batch: int, device) -> Params:
+def init_slstm_state(cfg: ArchConfig, batch: int, device,
+                     tp: Optional[ModelParallel] = None) -> Params:
+    """Under ``tp`` the state of the heads this rank runs (``heads_of_tile``),
+    (B, heads x dh) each: held as the recurrence is split, not as
+    ``sharding.cache_spec`` places these names (ROADMAP C)."""
     d = cfg.d_model
+    if tp is not None and d % tp.size == 0:
+        a, b = heads_of_tile(cfg.n_heads, tp.size, tp.index)
+        d = (b - a) * (d // cfg.n_heads)
     zeros = lambda: torch.zeros((batch, d), dtype=torch.float32, device=device)  # noqa: E731
     return {"c": zeros(), "n": zeros(), "h": zeros(),
             "m": torch.full((batch, d), NEG_INF, dtype=torch.float32, device=device)}
@@ -362,36 +490,81 @@ def _slstm_cell(pre_in: torch.Tensor, state: Params, r: torch.Tensor, one: torch
     return h_new, {"c": c_new, "n": n_new, "h": h_new, "m": m_new}
 
 
-def apply_slstm(cfg: ArchConfig, p: Params, x: torch.Tensor, state: Optional[Params] = None):
+def apply_slstm(cfg: ArchConfig, p: Params, x: torch.Tensor, state: Optional[Params] = None,
+                tp: Optional[ModelParallel] = None):
     """Returns (y, new_state); new_state is None when state is None.
 
     The recurrence runs head-major, so that each step is one batched
     product of the heads' recurrent blocks (plus the input projections) and
-    elementwise passes over contiguous state; the state is (B, d) outside."""
+    elementwise passes over contiguous state; the state is (B, d) outside.
+
+    Under ``tp``, where w_i / w_f / w_z / w_o split over "model" (by
+    columns), this rank runs the recurrence of its heads (``heads_of_tile``) with
+    no collective per step: its columns of the four input projections are
+    exchanged to whole heads where a tile is not whole heads, and the
+    replicated recurrent blocks, biases and norm scale are sliced to them.
+    The normed heads are then gathered on every rank (one exchange); the
+    FFN runs on this rank's tile of d_ff (ff_up's ``[up | gate]`` tile
+    exchanged for it, or its columns of a whole ff_up; its rows of ff_down,
+    split or whole) and its partial is summed."""
     B, T, d = x.shape
     H = cfg.n_heads
     dh = d // H
-    w = torch.cat([p[f"w_{k}"].float() for k in _SLSTM_GATES], dim=1)       # (d, 4d)
-    b = torch.cat([p[f"b_{k}"] for k in _SLSTM_GATES])                      # (4d,)
-    r = torch.cat([p[f"r_{k}"] for k in _SLSTM_GATES], dim=-1)              # (H,dh,4dh)
-    pre_in = (x.float() @ w + b).reshape(B, T, 4, H, dh).permute(1, 3, 0, 2, 4)
-    pre_in = pre_in.reshape(T, H, B, 4 * dh)
-    st = init_slstm_state(cfg, B, x.device) if state is None else state
-    st = {k: v.reshape(B, H, dh).transpose(0, 1) for k, v in st.items()}
+    d_ff = int(_ssm(cfg).proj_factor_slstm * d)
+    split = tp is not None and p["w_i"].shape[-1] < d
+    M, r = (tp.size, tp.index) if split else (1, 0)
+    ha, hb = heads_of_tile(H, M, r)
+    ra, rb = tiles(d_ff, M)[r][0]
+    up_whole, down_whole = p["ff_up"].shape[-1] == 2 * d_ff, p["ff_down"].shape[-2] == d_ff
+    if split:
+        # The replicated leaves this rank uses a part of (a whole FFN leaf too).
+        whole = [f"{w}_{k}" for w in "rb" for k in _SLSTM_GATES] + ["gn_scale"]
+        whole += [k for k, w in (("ff_up", up_whole), ("ff_down", down_whole)) if w]
+        x, *leaves = copy_to_model(tp, x, *(p[k] for k in whole))
+        p = {**p, **dict(zip(whole, leaves))}
+    cols = slice(ha * dh, hb * dh)
+    pre = x.float() @ torch.cat([p[f"w_{k}"].float() for k in _SLSTM_GATES], dim=1)
+    if split and (d // M) % dh:  # tiles that are not whole heads: exchanged to heads
+        have = tuple(tuple((g * d + a, g * d + b) for g in range(4) for a, b in t)
+                     for t in tiles(d, M))
+        want = tuple(tuple((g * d + a * dh, g * d + b * dh) for g in range(4))
+                     for a, b in (heads_of_tile(H, M, i) for i in range(M)))
+        pre = exchange_model(tp, pre, have, want)
+    b = torch.cat([p[f"b_{k}"][cols] for k in _SLSTM_GATES])                  # (4 nh dh,)
+    rec = torch.cat([p[f"r_{k}"][ha:hb] for k in _SLSTM_GATES], dim=-1)       # (nh,dh,4dh)
+    nh = hb - ha
+    pre_in = (pre + b).reshape(B, T, 4, nh, dh).permute(1, 3, 0, 2, 4)
+    pre_in = pre_in.reshape(T, nh, B, 4 * dh)
+    st = init_slstm_state(cfg, B, x.device, tp) if state is None else state
+    st = {k: v.reshape(B, nh, dh).transpose(0, 1) for k, v in st.items()}
     one = torch.ones((), dtype=torch.float32, device=x.device)
     hs = []
     for t in range(T):
-        h, st = _slstm_cell(pre_in[t], st, r, one)
+        h, st = _slstm_cell(pre_in[t], st, rec, one)
         hs.append(h)
-    h = torch.stack(hs, dim=2).permute(1, 2, 0, 3).reshape(B, T, d)
-    h = _groupnorm(h, cfg.n_heads, p["gn_scale"]).to(x.dtype)
-    up, gate = torch.chunk(h @ p["ff_up"], 2, dim=-1)
-    y = (F.gelu(up, approximate="tanh") * gate) @ p["ff_down"]
+    h = torch.stack(hs, dim=2).permute(1, 2, 0, 3).reshape(B, T, nh * dh)
+    h = (_groupnorm(h, nh, p["gn_scale"][cols]) if nh else h).to(x.dtype)
+    if split:
+        heads = tuple(((a * dh, b * dh),) for a, b in (heads_of_tile(H, M, i) for i in range(M)))
+        h = exchange_model(tp, h, heads, (((0, d),),) * M)  # every head on every rank
+    # The FFN on this rank's tile [ra, rb) of d_ff.
+    ff_up = p["ff_up"]
+    if up_whole and (ra, rb) != (0, d_ff):
+        ff_up = torch.cat([ff_up[:, ra:rb], ff_up[:, d_ff + ra:d_ff + rb]], dim=1)
+    u = h @ ff_up
+    if not up_whole:
+        u = exchange_model(tp, u, *_halves(d_ff, tiles(d_ff, M), M))
+    up, gate = torch.chunk(u, 2, dim=-1)
+    y = (F.gelu(up, approximate="tanh") * gate) @ (p["ff_down"][ra:rb] if down_whole
+                                                    else p["ff_down"])
+    if split:
+        y = reduce_from_model(tp, y)
     if state is None:
         return y, None
-    return y, {k: v.transpose(0, 1).reshape(B, d) for k, v in st.items()}
+    return y, {k: v.transpose(0, 1).reshape(B, nh * dh) for k, v in st.items()}
 
 
-def step_slstm(cfg: ArchConfig, p: Params, x: torch.Tensor, state: Params):
+def step_slstm(cfg: ArchConfig, p: Params, x: torch.Tensor, state: Params,
+               tp: Optional[ModelParallel] = None):
     """Cached step (T >= 1) via the scan path."""
-    return apply_slstm(cfg, p, x, state=state)
+    return apply_slstm(cfg, p, x, state=state, tp=tp)

@@ -28,10 +28,12 @@ A MoE block also returns its aux losses; ``apply_stack`` sums them over the
 layers. Cached (serve) steps leave them out: no caller reads them there.
 
 Tensor parallelism: ``tp`` (a ``collective.ModelParallel``, None on one
-rank) goes to every attention, FFN and MoE layer, which compute on this
-rank's slices of their leaves (``layers.py``, ``moe.py``). The recurrent
-mixers have no TP port yet: a mamba, mlstm or slstm block under ``tp``
-raises.
+rank) goes to every block's mixer and FFN / MoE, which compute on this
+rank's slices of their leaves (``layers.py``, ``moe.py``, ``ssm.py``: heads,
+or a head-dim split of KV heads that do not divide the axis; hidden dims;
+experts; the recurrent mixers' channels, d_k rows or heads). Their caches
+hold this rank's part of the state. ``check_tp`` raises only for a split
+that no arch of the registry makes.
 
 The cache of an attention block is its K/V, written in place; that of a
 recurrent block is its state (mamba: conv in the model type, h fp32; mlstm:
@@ -110,18 +112,16 @@ def apply_block(
     place and returned; a recurrent block returns its new state (None when
     ``cache`` is None)."""
     aux: Dict[str, torch.Tensor] = {}
-    if tp is not None:
-        check_tp_kind(kind)
     h = L.apply_norm(cfg, p["norm1"], x)
     if kind == "attn":
         y, new_cache = L.attention(cfg, p["mixer"], h, positions=positions, cache=cache,
                                    cache_pos=cache_pos, tp=tp)
     elif kind == "mamba":
-        y, new_cache = S.apply_mamba(cfg, p["mixer"], h, state=cache)
+        y, new_cache = S.apply_mamba(cfg, p["mixer"], h, state=cache, tp=tp)
     elif kind == "mlstm":
-        y, new_cache = S.apply_mlstm(cfg, p["mixer"], h, state=cache)
+        y, new_cache = S.apply_mlstm(cfg, p["mixer"], h, state=cache, tp=tp)
     elif kind == "slstm":
-        y, new_cache = S.apply_slstm(cfg, p["mixer"], h, state=cache)
+        y, new_cache = S.apply_slstm(cfg, p["mixer"], h, state=cache, tp=tp)
     else:
         raise ValueError(kind)
     x = x + y
@@ -135,36 +135,44 @@ def apply_block(
     return x, aux, new_cache
 
 
-def check_tp_kind(kind: str) -> None:
-    """Raises for a block kind whose tensor parallelism is not ported."""
-    if kind != "attn":
-        raise NotImplementedError(
-            f"tensor parallelism over 'model' for {kind!r} blocks is not ported yet (the "
-            f"recurrent mixers' 'model' rules, runtime/sharding.py); use a 'model' axis of 1")
-
-
 def check_tp(cfg: ArchConfig, n_model: int) -> None:
     """Raises where ``cfg`` cannot run tensor parallel on a "model" axis of
-    ``n_model``: a recurrent block, or KV heads that do not split whole."""
+    ``n_model``: a rank without a query head, or a mixer whose leaves split
+    on some of its dims and not on others (no arch of the registry does
+    either on (1, 4) or (16, 16))."""
     if n_model == 1:
         return
-    for kind in cfg.block_types():
-        check_tp_kind(kind)
-    L.local_kv_heads(cfg, n_model)
+    kinds = set(cfg.block_types())
+    if "attn" in kinds and cfg.q_dim % n_model == 0:
+        for r in range(n_model):
+            L.head_split(cfg, n_model, r)
+    dims = {}
+    if "mamba" in kinds:
+        d_in = S.mamba_dims(cfg)[0]
+        dims["mamba"] = (2 * d_in, d_in)
+    if "mlstm" in kinds:
+        d_in, dh = S.mlstm_dims(cfg)
+        dims["mlstm"] = (2 * d_in, dh, d_in)
+    if "slstm" in kinds:  # a whole w_i with a split FFN
+        d_ff = int(S._ssm(cfg).proj_factor_slstm * cfg.d_model)
+        dims["slstm"] = (cfg.d_model, 2 * d_ff if cfg.d_model % n_model else cfg.d_model)
+    for kind, ds in dims.items():
+        if len({d % n_model == 0 for d in ds}) > 1:
+            raise NotImplementedError(
+                f"{cfg.name}: the {kind!r} leaves split over a 'model' axis of {n_model} on some "
+                f"of their dims {ds} and not on others")
 
 
 def init_block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int, device,
                      dtype, tp: Optional[ModelParallel] = None) -> Params:
-    if tp is not None:
-        check_tp_kind(kind)
     if kind == "attn":
         return L.init_attn_cache(cfg, batch, max_len, device, dtype, tp)
     if kind == "mamba":
-        return S.init_mamba_state(cfg, batch, device, dtype)
+        return S.init_mamba_state(cfg, batch, device, dtype, tp)
     if kind == "mlstm":
-        return S.init_mlstm_state(cfg, batch, device)
+        return S.init_mlstm_state(cfg, batch, device, tp)
     if kind == "slstm":
-        return S.init_slstm_state(cfg, batch, device)
+        return S.init_slstm_state(cfg, batch, device, tp)
     raise ValueError(kind)
 
 
@@ -178,10 +186,15 @@ def _map(fn, tree):
 
 
 def _stack(trees: List[Params]) -> Params:
+    """The trees stacked leaf by leaf; each stacked leaf's sources are
+    taken out of ``trees`` as it is made, so the peak is the tree and one
+    leaf, not two trees (a jamba period is 26.6 GB in bf16)."""
     first = trees[0]
     if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return torch.stack(trees)
+        return {k: _stack([t.pop(k) for t in trees]) for k in list(first)}
+    out = torch.stack(trees)
+    trees.clear()
+    return out
 
 
 def init_stack(cfg: ArchConfig, gen: torch.Generator, dtype) -> Params:

@@ -3,7 +3,9 @@ device, or on a ``(pod, data, model)`` mesh with ``repro``'s TP-only
 placements (``sharding.tree_param_specs(..., fsdp=False)``): each weight is
 split over "model" as its rule says and replicated over "data", the batch
 is split over the data-parallel ranks (``P(("pod", "data"))``) and each
-rank's cache holds its rows and its KV heads (``sharding.cache_spec``).
+rank's cache holds its rows and its part of each layer's state: its KV
+heads or their head-dim slices (``sharding.cache_spec``), the recurrent
+mixers' channels, d_k rows or heads (``models/ssm.py``).
 """
 from __future__ import annotations
 

@@ -9,8 +9,7 @@ Axes:
             also sharded over "data" on one dimension (its FSDP dim) and
             all-gathered just in time inside the step.
   "model" -- tensor parallelism: heads / FFN hidden / vocab / experts / SSM
-            channels. Serving and the train step run it for attention, dense
-            FFN and MoE stacks; the SSM rules wait for the recurrent mixers.
+            channels. Serving and the train step run it for every block kind.
 
 Every rule checks divisibility against the mesh before it applies an axis; a
 dim that does not divide falls back to replication (recorded in the spec).
@@ -286,13 +285,14 @@ def _split_axes(spec: P, mesh):
 
 def shard_leaf(full: torch.Tensor, spec: P, mesh) -> torch.Tensor:
     """This rank's slice of ``full`` along every dim its spec shards (a
-    contiguous copy), or ``full`` itself for a replicated leaf."""
+    copy, also where the slice is contiguous already: a view would keep the
+    whole leaf's memory alive), or ``full`` itself for a replicated leaf."""
     split = _split_axes(spec, mesh)
     if not split:
         return full
     for d, a in split:
         full = full.chunk(mesh.shape[a], dim=d)[mesh.axis_index(a)]
-    return full.contiguous()
+    return full.clone(memory_format=torch.contiguous_format)
 
 
 def unshard_leaf(local: torch.Tensor, spec: P, mesh) -> torch.Tensor:

@@ -51,9 +51,10 @@ entropy), so every "model" rank of a replica holds the same loss and the
 gradients of its slices. The vote, the finiteness check and the clipping
 norm are those of the whole leaves: the squares and non-finite counts of
 "model"-split leaves are summed over "model" (replicated ones count once),
-so every "model" rank of a replica casts the same vote. The recurrent
-mixers have no TP port yet: a stack with a mamba, mlstm or slstm block on a
-"model" axis larger than 1 raises, as do KV heads that do not split whole.
+so every "model" rank of a replica casts the same vote. Every block kind
+runs tensor parallel (attention with KV heads split whole or along their
+head dim, Mamba, mLSTM and sLSTM); a replicated leaf that a rank uses a part
+of passes ``copy_to_model``, so its gradient is whole on every rank.
 
 The step takes this rank's shard of the global batch (``Mesh.batch_index``;
 every "model" rank of a replica takes the same one) and updates the state

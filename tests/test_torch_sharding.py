@@ -186,23 +186,68 @@ def test_state_specs_match_repro(mesh, compress_pod):
     assert _flat(got) == _jflat(want)
 
 
-def test_train_step_and_trainer_refuse_tensor_parallelism():
-    """Tensor parallelism over "model" runs for attention, dense-FFN and MoE
-    stacks; the train step and the Trainer raise, before any collective, for
-    what it does not cover yet: a recurrent block (xlstm-1.3b's mLSTM and
-    sLSTM, whose "model" rules wait for the next slice) and KV heads that do
-    not split whole (reduced qwen3-1.7b's 2 KV heads on 4 ranks, which
-    repro splits along the head dim)."""
+def _step_and_trainer(rank, world, init_file, shape, arch, out_dir):
+    """One rank: the train step of reduced ``arch`` on ``shape`` builds and
+    takes a step, and the Trainer trains one step."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.optim import adamw
     from repro_torch.runtime import spmd
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
-    cases = ((AbstractMesh.of((4, 2), ("data", "model")), "xlstm-1.3b", "'mlstm' blocks"),
-             (AbstractMesh.of((1, 4), ("data", "model")), "qwen3-1.7b", "leaf 'wk'"))
-    for mesh, arch, what in cases:
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=world)
+    try:
+        mesh = make_mesh(shape, ("data", "model"), "cpu")
         cfg = registry.get(arch, reduced=True)
-        assert shd.tree_param_specs(zoo.build(cfg, device="cpu").param_shapes(), mesh)
-        with pytest.raises(NotImplementedError, match=what):
-            spmd.build_train_step(zoo.build(cfg, device="cpu"), adamw.AdamWConfig(), mesh)
-        with pytest.raises(NotImplementedError, match=what):
-            Trainer(TrainerConfig(arch=cfg, device="cpu"), mesh=mesh)
+        model = zoo.build(cfg, dtype=torch.float32, device="cpu")
+        ocfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2)
+        state = spmd.make_train_state(model, ocfg, torch.Generator().manual_seed(0), mesh=mesh)
+        step = spmd.build_train_step(model, ocfg, mesh)
+        raw = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
+                                     global_batch=shape[0])).batch_at(0)
+        r = mesh.batch_index()
+        batch = {k: torch.from_numpy(v[r:r + 1].copy()) for k, v in raw.items()}
+        batch = {k: v if k == "loss_mask" else v.long() for k, v in batch.items()}
+        _, metrics = step(state, batch)
+        logs = Trainer(TrainerConfig(arch=cfg, steps=1, global_batch=shape[0], seq_len=16,
+                                     device="cpu"), mesh=mesh).train()
+        torch.save({"coords": (mesh.axis_index("data"), mesh.axis_index("model")),
+                    "step": {k: float(v) for k, v in metrics.items()}, "trainer": logs},
+                   os.path.join(out_dir, f"{arch}_{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_train_step_and_trainer_refuse_tensor_parallelism(tmp_path):
+    """The cases this test once held refused now run: xlstm-1.3b's mLSTM and
+    sLSTM on (data=4, model=2) (eight ranks) and reduced qwen3-1.7b's 2 KV
+    heads on (data=1, model=4) (split along their head dim). The train step
+    builds and takes a step, and the Trainer trains one: on every rank the
+    loss is finite and the step commits with every replica's vote, and the
+    "model" ranks of a replica report the same loss. (Their parity with
+    repro: tests/test_torch_tp_ssm_train.py, tests/test_torch_tp_headdim.py.)"""
+    import torch.multiprocessing as mp
+
+    cases = (((4, 2), "xlstm-1.3b"), ((1, 4), "qwen3-1.7b"))
+    for shape, arch in cases:
+        cfg = registry.get(arch, reduced=True)
+        assert shd.tree_param_specs(zoo.build(cfg, device="cpu").param_shapes(),
+                                    AbstractMesh.of(shape, ("data", "model")))
+        world = shape[0] * shape[1]
+        mp.spawn(_step_and_trainer, args=(world, str(tmp_path / f"pg_{arch}"), shape, arch,
+                                          str(tmp_path)), nprocs=world)
+        ranks = [torch.load(tmp_path / f"{arch}_{r}.pt", weights_only=False)
+                 for r in range(world)]
+        losses = {}
+        for out in ranks:
+            assert np.isfinite(out["step"]["loss"]), (arch, out["coords"])
+            assert out["step"]["committed"] == 1.0 and out["step"]["n_yes"] == shape[0]
+            assert len(out["trainer"]) == 1 and out["trainer"][0]["committed"] == 1.0
+            assert np.isfinite(out["trainer"][0]["loss"])
+            losses.setdefault(out["coords"][0], set()).add(out["step"]["loss"])
+        assert all(len(v) == 1 for v in losses.values()), (arch, losses)

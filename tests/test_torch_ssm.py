@@ -195,7 +195,7 @@ def test_mlstm_grads_finite_where_the_masked_decay_overflows():
     jh, _ = JS._mlstm_chunk(*map(jnp.asarray, (q, k, v, li, lf)),
                             jax.tree_util.tree_map(jnp.asarray, state))
     ins = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v, li, lf)]
-    h, _ = S._mlstm_chunk(*ins, _torch_tree(state))
+    h, _ = S._mlstm_chunks(*ins, _torch_tree(state), c)
     np.testing.assert_allclose(_np(h), _np(jh), **TOL)
     grads = torch.autograd.grad(h.sum(), ins)
     assert all(torch.isfinite(g).all() for g in grads)

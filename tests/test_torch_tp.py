@@ -14,12 +14,16 @@ gradients are held to the port's one-rank path, which the other
 ``test_torch_*`` files hold to ``repro``.
 """
 import dataclasses
+import math
+import os
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
+
+from repro_torch.configs.registry import list_archs  # noqa: E402
 
 MAX_LEN, PROMPT, DECODES = 16, 9, 3
 LOGIT_TOL = dict(rtol=2e-4, atol=2e-4)  # tests/test_models_smoke.py's
@@ -284,7 +288,8 @@ def test_region_operators_match_one_rank(runs, remat):
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5, msg=f"{rank} {key}")
         calls = {k: v[0] for k, v in res["counts"].items()}
         assert calls == {"copy_to_model": 1, "reduce_from_model": 1 + (remat == "dots"),
-                         "gather_from_model": 0, "vocab_parallel_nll": 0}, calls
+                         "gather_from_model": 0, "vocab_parallel_nll": 0,
+                         "exchange_model": 0}, calls
         assert res["counts"]["reduce_from_model"][1] == calls["reduce_from_model"] * 3 * 5 * 8 * 4
 
 
@@ -393,98 +398,235 @@ def test_tp_local_shapes_and_collectives(runs):
         for phase in ("prefill", "decode"):
             calls = {k: v[0] for k, v in r0[f"{case}/{phase}_counts"].items()}
             assert calls == {"copy_to_model": 0, "reduce_from_model": 5, "gather_from_model": 1,
-                             "vocab_parallel_nll": 0}, (case, phase, calls)
+                             "vocab_parallel_nll": 0, "exchange_model": 0}, (case, phase, calls)
     # The prefill's sums move (B, T, d) fp32 partials, a decode step's (B, 1, d).
     assert r0["qwen/prefill_counts"]["reduce_from_model"][1] == 5 * 2 * PROMPT * 64 * 4
     assert r0["qwen/decode_counts"]["reduce_from_model"][1] == 5 * 2 * 1 * 64 * 4
 
 
-# ------------------------------------------------------------- refusals
+# ------------------------------------------- the former refusals, and one
 
 
-def test_kv_heads_that_do_not_split_whole_raise():
-    """Reduced qwen3-1.7b has 2 KV heads of 16: on a "model" axis of 4, wk's
-    slice is half a head (repro splits the head dim there), which raises
-    naming the leaf, for serving as for the cache."""
+def _ranks_main(rank, name, world, init_file, out_dir):
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=world)
+    try:
+        torch.save(globals()[name](rank), os.path.join(out_dir, f"{name}_{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _on_ranks(name, world, tmp):
+    """``name(rank)`` on ``world`` gloo ranks; their results."""
+    import torch.multiprocessing as mp
+
+    mp.spawn(_ranks_main, args=(name, world, str(tmp / f"pg_{name}"), str(tmp)), nprocs=world)
+    return [torch.load(tmp / f"{name}_{r}.pt", weights_only=False) for r in range(world)]
+
+
+def _serve_both(cfg, mesh, tokens, prompt=PROMPT):
+    """Prefill + DECODES steps of the port on ``mesh`` and on one rank, from
+    the same parameters: (max |difference| of the logits, this rank's cache,
+    its parameters)."""
+    from repro_torch.models import zoo
+    from repro_torch.runtime.serve import build_serve_fns, shard_params
+
+    model = zoo.build(cfg, dtype=torch.float32, device="cpu")
+    full = model.init(torch.Generator().manual_seed(0))
+    one = zoo.build(cfg, dtype=torch.float32, device="cpu")
+    one.load(full)
+    local = shard_params(model, full, mesh)
+    fns, fns1 = build_serve_fns(model, MAX_LEN, "cpu", mesh), build_serve_fns(one, MAX_LEN, "cpu")
+    got, cache = fns[0](local, {"tokens": tokens[:, :prompt]})
+    want, cache1 = fns1[0](full, {"tokens": tokens[:, :prompt]})
+    err = (got - want).abs().max().item()
+    for i in range(DECODES):
+        step = {"tokens": tokens[:, prompt + i:prompt + i + 1]}
+        got, cache = fns[1](local, cache, step)
+        want, cache1 = fns1[1](full, cache1, step)
+        err = max(err, (got - want).abs().max().item())
+    return err, cache, local
+
+
+def _kv_split_rank(rank):
     from repro_torch.configs import registry
-    from repro_torch.core.collective import ModelParallel
-    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.launch.mesh import make_mesh
+
+    cfg = registry.get("qwen3-1.7b", reduced=True)
+    tokens = torch.from_numpy(_tokens(cfg.vocab_size)).long()
+    err, cache, _ = _serve_both(cfg, make_mesh((1, 4), ("data", "model"), "cpu"), tokens)
+    return {"err": err, "cache": tuple(cache["layers"]["b0"]["k"].shape)}
+
+
+def test_kv_heads_that_do_not_split_whole_raise(tmp_path):
+    """Reduced qwen3-1.7b has 2 KV heads of 16: on a "model" axis of 4, wk's
+    slice is half a head. This once raised; now each rank's cache holds both
+    KV heads and 4 of their 16 dims, as cache_spec places it, and serving
+    on (data=1, model=4) gives the one-rank port's logits on every rank
+    (repro's: tests/test_torch_tp_headdim.py)."""
+    for out in _on_ranks("_kv_split_rank", 4, tmp_path):
+        assert out["cache"] == (2, 2, MAX_LEN, 2, 4)
+        assert out["err"] <= 2e-4, out["err"]
+
+
+def _mamba_rank(rank):
+    from repro_torch.configs import registry
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.tree import tree_map
+
+    cfg = registry.get("jamba-v0.1-52b", reduced=True)
+    mesh = make_mesh((1, 2), ("data", "model"), "cpu")
+    tokens = torch.from_numpy(_tokens(cfg.vocab_size)).long()
+    err, cache, local = _serve_both(cfg, mesh, tokens, prompt=8)  # whole Mamba chunks
+    j, (kind, is_moe) = next((j, sig) for j, sig in enumerate(T.period_signature(cfg))
+                             if sig[0] == "mamba")
+    full = tree_map(lambda v: v[0], zoo_params(cfg)["stack"][f"b{j}"])
+    x = torch.randn(1, 8, cfg.d_model, generator=torch.Generator().manual_seed(3))
+    want, _, _ = T.apply_block(cfg, kind, is_moe, full, x, positions=None, cache=None,
+                               cache_pos=None)
+    got, _, _ = T.apply_block(cfg, kind, is_moe, tree_map(lambda v: v[0], local["stack"][f"b{j}"]),
+                              x, positions=None, cache=None, cache_pos=None,
+                              tp=shd.model_parallel(mesh))
+    return {"err": err, "block_err": (got - want).abs().max().item(),
+            "h": tuple(cache["layers"][f"b{j}"]["h"].shape)}
+
+
+def zoo_params(cfg):
+    from repro_torch.models import zoo
+
+    return zoo.build(cfg, dtype=torch.float32, device="cpu").init(
+        torch.Generator().manual_seed(0))
+
+
+def test_recurrent_blocks_raise_under_tp(tmp_path):
+    """A Mamba block (reduced jamba-v0.1-52b) on a "model" axis of 2 once
+    raised; now the block on its "model" slices gives the one-rank block's
+    output, each rank's Mamba state holds 64 of its 128 channels, and
+    serving on (data=1, model=2) gives the one-rank port's logits (repro's:
+    tests/test_torch_tp_ssm.py)."""
+    for out in _on_ranks("_mamba_rank", 2, tmp_path):
+        assert out["h"] == (1, 2, 64, 4)
+        assert out["err"] <= 2e-4 and out["block_err"] <= 2e-5, out
+
+
+def _ragged_rank(rank):
+    from repro_torch.configs import registry
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import zoo
     from repro_torch.runtime.serve import build_serve_fns
 
     cfg = registry.get("qwen3-1.7b", reduced=True)
     model = zoo.build(cfg, dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="leaf 'wk'"):
-        build_serve_fns(model, MAX_LEN, "cpu", AbstractMesh.of((1, 4), ("data", "model")))
-    with pytest.raises(NotImplementedError, match="leaf 'wk'"):
-        model.init_cache(2, MAX_LEN, tp=ModelParallel(None, 0, 4))
-
-
-def test_recurrent_blocks_raise_under_tp():
-    """A Mamba block (reduced jamba-v0.1-52b) on a "model" axis of 2 raises
-    naming the block kind: its TP is the next slice's."""
-    from repro_torch.configs import registry
-    from repro_torch.core.collective import ModelParallel
-    from repro_torch.launch.mesh import AbstractMesh
-    from repro_torch.models import transformer as T
-    from repro_torch.models import zoo
-    from repro_torch.runtime.serve import build_serve_fns
-    from repro_torch.tree import tree_map
-
-    cfg = registry.get("jamba-v0.1-52b", reduced=True)
-    model = zoo.build(cfg, dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="'mamba' blocks"):
-        build_serve_fns(model, MAX_LEN, "cpu", AbstractMesh.of((1, 2), ("data", "model")))
     params = model.init(torch.Generator().manual_seed(0))
-    j, (kind, is_moe) = next((j, sig) for j, sig in enumerate(T.period_signature(cfg))
-                             if sig[0] == "mamba")
-    block = tree_map(lambda v: v[0], params["stack"][f"b{j}"])
-    with pytest.raises(NotImplementedError, match="'mamba' blocks"):
-        T.apply_block(cfg, kind, is_moe, block, torch.zeros(1, 4, cfg.d_model), positions=None,
-                      cache=None, cache_pos=None, tp=ModelParallel(None, 0, 2))
+    prefill_fn, _ = build_serve_fns(model, MAX_LEN, "cpu", make_mesh((2, 1), ("data", "model"),
+                                                                     "cpu"))
+    try:
+        prefill_fn(params, {"tokens": torch.zeros(3, PROMPT, dtype=torch.long)})
+    except NotImplementedError as e:
+        return str(e)
+    return None
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-moe-1b-a400m"])
+def test_serve_refuses_a_batch_that_does_not_split_over_data(tmp_path):
+    """What is still not ported: a batch of 3 on 2 data-parallel ranks, for
+    which cache_spec splits the cache over the sequence instead, raises on
+    every rank before any collective."""
+    for msg in _on_ranks("_ragged_rank", 2, tmp_path):
+        assert msg is not None and "split over the sequence" in msg, msg
+
+
+FULL_MESHES = ((1, 4), (16, 16))
+
+
+@pytest.mark.parametrize("arch", list_archs())
 def test_full_width_rules_on_model_4(arch):
-    """The serving placements of the full-width leaves on (data=1, model=4)
-    equal repro's, and split as this slice needs: qwen3-1.7b 4 query and 2
-    KV heads of 128 a rank, FFN hidden 1,536, vocabulary 37,984 rows;
-    granite-moe-1b-a400m 4 / 2 heads of 64, 8 of 32 experts, and its
-    embedding of 49,155 rows (odd) whole, like the router and the norms.
-    The KV cache splits on its head dim."""
+    """Every arch of the registry at full width on (data=1, model=4) and
+    (data=16, model=16): ``check_tp`` passes; the serving placements equal
+    repro's; each rank's local shape of every parameter leaf is repro's spec
+    applied to repro's shapes, and so is that of every cache leaf (rank 0,
+    32 rows of 64 positions), but the sLSTM's state, held by the heads a rank
+    runs (ROADMAP C). On (1, 4): qwen3-1.7b 4 query and 2 KV heads of 128 a
+    rank, FFN hidden 1,536, vocabulary 37,984 rows; granite-moe-1b-a400m
+    4 / 2 heads of 64, 8 of 32 experts, and its embedding of 49,155 rows
+    (odd) whole, like the router and the norms; their KV cache splits on its
+    heads."""
     from jax.sharding import AbstractMesh as JAbstractMesh
+    from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro.configs import registry as jregistry
     from repro.models import zoo as jzoo
     from repro.runtime import sharding as jshd
     from repro_torch.configs import registry
+    from repro_torch.core.collective import ModelParallel
     from repro_torch.launch.mesh import AbstractMesh
     from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
     from repro_torch.models import zoo
     from repro_torch.runtime import sharding as shd
     from repro_torch.tree import leaves_with_paths
 
-    sizes, names = (1, 4), ("data", "model")
     cfg = registry.get(arch)
-    tpl = zoo.build(cfg, device="cpu").param_shapes()
-    specs = shd.tree_param_specs(tpl, AbstractMesh.of(sizes, names), fsdp=False)
-    jtpl = jax.eval_shape(jzoo.build(jregistry.get(arch)).init, jax.random.PRNGKey(0))
-    jspecs = jshd.tree_param_specs(jtpl, JAbstractMesh(sizes, names), fsdp=False)
-    want = {jshd.path_str(p): tuple(s) for p, s in jax.tree_util.tree_flatten_with_path(
-        jspecs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))[0]}
-    local = {}
-    for (path, leaf), (_, spec) in zip(leaves_with_paths(tpl), leaves_with_paths(specs)):
-        key = "/".join(path)
-        assert tuple(spec) == want[key], key
-        d = shd.model_dim(spec)
-        local[key] = tuple(n // 4 if i == d else n for i, n in enumerate(leaf.shape))
+    model = zoo.build(cfg, device="cpu")
+    tpl = model.param_shapes()
+    jmodel = jzoo.build(jregistry.get(arch))
+    jtpl = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0))
+    jcache = jax.eval_shape(lambda: jmodel.init_cache(32, 64))["layers"]
+    is_spec = lambda x: isinstance(x, jax.sharding.PartitionSpec)  # noqa: E731
+
+    def flat_specs(tree):
+        return {jshd.path_str(p): tuple(s) for p, s in
+                jax.tree_util.tree_flatten_with_path(tree, is_leaf=is_spec)[0]}
+
+    def applied(shape, spec, mesh):
+        return tuple(n // math.prod(mesh.shape[a] for a in ((e,) if isinstance(e, str) else e))
+                     if e else n for n, e in zip(shape, spec))
+
+    for sizes in FULL_MESHES:
+        names = ("data", "model")
+        mesh, jmesh = AbstractMesh.of(sizes, names), JAbstractMesh(sizes, names)
+        T.check_tp(cfg, sizes[1])
+        specs = shd.tree_param_specs(tpl, mesh, fsdp=False)
+        want = flat_specs(jshd.tree_param_specs(jtpl, jmesh, fsdp=False))
+        jshapes = {jshd.path_str(p): s.shape
+                   for p, s in jax.tree_util.tree_flatten_with_path(jtpl)[0]}
+        local = {}
+        for (path, leaf), (_, spec) in zip(leaves_with_paths(tpl), leaves_with_paths(specs)):
+            key = "/".join(path)
+            assert tuple(spec) == want[key], key
+            local[key] = applied(tuple(leaf.shape), spec, mesh)
+            assert local[key] == applied(jshapes[key], want[key], mesh), key
+        jspecs = flat_specs(jshd.tree_cache_specs({"layers": jcache}, jmesh))
+        with FakeTensorMode():
+            cache = model.init_cache(32 // sizes[0], 64, tp=ModelParallel(None, 0, sizes[1]))
+        kinds = dict(zip((f"b{j}" for j in range(len(T.period_signature(cfg)))),
+                         (k for k, _ in T.period_signature(cfg))))
+        for path, leaf in leaves_with_paths(cache["layers"]):
+            key = "/".join(path)
+            jleaf = jax.tree_util.tree_flatten_with_path(jcache)[0]
+            jshape = dict((jshd.path_str(p), s.shape) for p, s in jleaf)[key]
+            if kinds[path[0]] == "slstm":
+                a, b = L.heads_of_tile(cfg.n_heads, sizes[1], 0)
+                expect = applied(jshape[:-1], (None, ("data",)), mesh) + (
+                    (b - a) * cfg.d_model // cfg.n_heads,)
+            else:
+                expect = applied(jshape, jspecs["layers/" + key], mesh)
+            assert tuple(leaf.shape) == expect, (sizes, key, tuple(leaf.shape), expect)
+    if arch not in ("qwen3-1.7b", "granite-moe-1b-a400m"):
+        return
+    mesh = AbstractMesh.of((1, 4), ("data", "model"))
+    specs = shd.tree_param_specs(tpl, mesh, fsdp=False)
+    local = {"/".join(path): applied(tuple(leaf.shape), spec, mesh)
+             for (path, leaf), (_, spec) in zip(leaves_with_paths(tpl), leaves_with_paths(specs))}
     G, hd = cfg.n_layers, cfg.head_dim
     assert local["stack/b0/mixer/wq"] == (G, cfg.d_model, 4 * hd)
     assert local["stack/b0/mixer/wk"] == (G, cfg.d_model, 2 * hd)
     assert local["stack/b0/mixer/wo"] == (G, 4 * hd, cfg.d_model)
-    assert L.local_kv_heads(cfg, 4) == 2
-    cache = shd.cache_spec("layers/b0/k", (G, 8, 1056, cfg.n_kv_heads, hd),
-                           AbstractMesh.of(sizes, names))
+    assert L.head_split(cfg, 4, 1).kv == (2, 4) and L.head_split(cfg, 4, 1).wk == "heads"
+    cache = shd.cache_spec("layers/b0/k", (G, 8, 1056, cfg.n_kv_heads, hd), mesh)
     assert tuple(cache) == (None, None, None, "model", None)
     for key in ("stack/b0/norm1/scale", "stack/b0/mixer/q_norm", "final_norm/scale"):
         if key in local:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Phase 22 of ``chip_smoke.py`` alone: tensor parallelism over "model" on one
 card, four gloo ranks, with what the phase needs first (the kernels, the
-one-rank greedy tokens of full qwen3-1.7b and granite-moe-1b-a400m, phase
+one-rank serve runs of full qwen3-1.7b and granite-moe-1b-a400m, phase
 21's one-rank training baseline). Before and after it, four ranks time
 gloo's all_reduce on CUDA tensors: 57 calls of a decode step's (8, 1, 2048)
 fp32 partial, and 4 of a prefill's (8, 1024, 2048), the per-call wall that
@@ -76,7 +76,6 @@ def main() -> int:
         return 2
     from repro_torch.configs import registry
     from repro_torch.kernels import build
-    from repro_torch.launch.serve import generate
     from repro_torch.models import zoo
     from repro_torch.runtime.serve import build_serve_fns
 
@@ -88,18 +87,17 @@ def main() -> int:
     cs.log(f"{card}; torch {torch.__version__}; built in {build.build():.1f} s")
     gloo_latency(card, "before phase 22")
     dev = torch.device("cuda", 0)
-    for arch in (cs.DENSE, cs.MOE):  # the one-rank greedy tokens of phases 5 / 11
+    for arch in (cs.DENSE, cs.MOE):  # the one-rank runs of phases 5 / 11
         cfg = registry.get(arch)
         model = zoo.build(cfg, dtype=torch.bfloat16, device=dev)
         params = model.init(torch.Generator(device=dev).manual_seed(0))
         prefill_fn, decode_fn = build_serve_fns(model, cs.MAX_LEN, dev)
-        cs.SERVED_TOKENS[arch] = generate(prefill_fn, decode_fn, params, cs.serve_prompt(cfg),
-                                          cs.GEN, dev)["tokens"]
+        cs.record_served(cfg, prefill_fn, decode_fn, params, dev)
         del model, params, prefill_fn, decode_fn
         torch.cuda.empty_cache()
     baseline = cs.dataplane_baseline()
     t0 = time.perf_counter()
-    cs.tensor_parallel(card, baseline)
+    cs.tensor_parallel(card, 22, baseline)
     cs.log(f"phase 22 took {time.perf_counter() - t0:.1f} s")
     gloo_latency(card, "after phase 22")
     import shutil
