@@ -27,12 +27,14 @@ a non-zero exit:
      back-to-back calls at two shapes (its arrival counters reset); hold the
      autograd Functions (flash attention on K1 + K2 + K3, RMSNorm on K5)
      against autograd of the plain versions and check that no kernel output
-     leaves the graph; then time each kernel at both models' full-width
+     leaves the graph; K4's log-sum-exp variant (o in fp32 and lse, at
+     phase 24's slices, kv_len 0 and inside a split; f32 atol 2e-5, bf16
+     2e-2) against the plain variant; then time each kernel at both models' full-width
      shapes (D 128 and D 64) beside its bound, its plain version and one
      PyTorch library call as a yardstick (the port never calls that library
      function): CUDA events around the call (ms) and the kernels' own device
      time from torch.profiler (device_ms, library_device_ms); K1, K4 and K5
-     also at jamba's shapes;
+     also at jamba's shapes, and the variant at phase 24 (b)'s slice;
   4. serve-path parity: qwen3-1.7b at full width with 2 layers in float32
      serves 2 ragged requests (prefill + 4 decode steps) on the card through
      the kernels and on the CPU through the plain versions; logits agree
@@ -79,7 +81,7 @@ a non-zero exit:
   20. train full xlstm-1.3b (bf16, 4 x 1024) as phase 8;
   21. the data plane: four spawned ranks, all on this card, over a
      (pod=2, data=2, model=1) mesh on gloo (NCCL refuses two ranks on one
-     device) train full-width qwen3-1.7b cut to 8 layers, one 1024-token
+     device) train full-width qwen3-1.7b cut to 4 layers, one 1024-token
      sequence a rank: FSDP weights streamed per layer group (ZeRO-3) on K1 /
      K2 / K3 / K5. (a) two fp32 steps against a one-rank step of the whole
      batch run before the spawn: loss and grad_norm at rtol 1e-4, the
@@ -100,7 +102,7 @@ a non-zero exit:
      and all-reduce / all-gather calls and bytes per prefill and decode
      step, per-rank peak memory and walls, rank 0's in-path K1 / K4 device
      time, and how many greedy tokens equal the one-rank run's (reported,
-     not gated: bf16 near-ties may flip); (c) train 8-layer qwen3-1.7b
+     not gated: bf16 near-ties may flip); (c) train 4-layer qwen3-1.7b
      (fp32) on (data=2, model=2) for two steps against phase 21's one-rank
      baseline at its tolerances, with exact launches and collective calls;
   23. tensor parallelism of the recurrent mixers and of KV heads split
@@ -110,20 +112,40 @@ a non-zero exit:
      ranks: each rank caches a quarter of every head's dims and pads its
      10 query heads to 12 over the 3 KV heads they read) in fp32 on
      (data=1, model=4) to one rank on the card at atol/rtol 2e-3, no expert
-     choice or capacity-mask entry different; (b) serve jamba's period,
-     xlstm-1.3b whole and phi3-medium-14b cut to 4 of 40 layers (bf16) as
-     phase 5, with exact K1 / K4 / K5 launches and all_reduce /
-     all_to_all / all-gather calls and bytes per prefill and decode step
-     (``tp_collectives``), per-rank peak memory and walls, rank 0's
-     in-path K1 / K4 device time, and the greedy tokens and prefill logits
-     beside phases 16 / 18's and their one-ulp twins' (reported, not
-     gated); (c) train one xlstm-1.3b period (8 layers, fp32) on (data=2,
-     model=2) for two steps against a one-rank baseline, with exact
+     choice or capacity-mask entry different; (b) serve the first period
+     of jamba and of xlstm (8 layers each) and phi3-medium-14b cut to 4 of
+     40 layers (bf16) as phase 5, with exact K1 / K4 / K5 launches and
+     all_reduce / all_to_all / all-gather calls and bytes per prefill and
+     decode step (``tp_collectives``), per-rank peak memory and walls, rank
+     0's in-path K1 / K4 device time, and the greedy tokens and prefill
+     logits beside one rank's run of the same cut and its one-ulp twin's
+     (phase 16's for jamba; reported, not gated); (c) train one xlstm-1.3b
+     period (8 layers, fp32) on (data=2, model=2) for two steps against a
+     one-rank baseline, with exact
      collective calls: loss at phase 21's rtol 1e-4, grad norm at twice the
      spread of three twins of the baseline (its fp32 noise floor) where
      that is wider, every leaf within ``leaf_bounds``; then the same two
      steps with a planted fault (``planted_fault``), which the same
-     comparison must fail.
+     comparison must fail;
+  24. a batch that does not split over the data-parallel ranks, every
+     attention cache split over the sequence (``sharding.serve_plan``, case 3): four
+     spawned ranks on this card (gloo) (a) serve 2-layer full-width
+     qwen3-1.7b in fp32 with a cache of 4096 on (data=4, model=1) and
+     (data=2, model=2), batch 3 with a 3,070-token prompt and batch 1 with a
+     2,046-token prompt, 4 decode steps each fed the one-rank run's greedy
+     tokens: logits at rtol/atol 2e-4 of one rank's whole-cache run on the
+     card, exact K1 / K4-variant / K5 launches (the o-only K4 none) and
+     exact region-operator and collective calls per prefill and decode step
+     (``seq_collectives``: a gather of the partials per attention layer of a
+     decode step), per rank the walls and peak memory; (b) serve full
+     qwen3-1.7b in bf16 at decode_32k's length
+     (a cache of 32,768 positions, 8,192 a rank on (data=4, model=1)), batch
+     1, a 24,574-token prompt and 6 decode steps across position 24,576:
+     each step's greedy token equal to the one-rank run's (or that run's
+     top-2 margin there below the logits' difference), logits rel-L2 within
+     2e-2 (reported beside the one-rank run's one-ulp twin's), per rank and
+     for the one rank the prefill wall, the median decode step, peak memory
+     and cache bytes.
 
 The lines before the last are the granite shapes' (D 64) and jamba's
 shapes' kernel timings as one JSON object each, the card's name and power
@@ -174,6 +196,9 @@ DECODE_KV = PROMPT + GEN // 2  # kv_len of the middle decode step
 G_DECODE_KV = PROMPT + 1       # kv_len of the first decode step
 # Full-width training shape: global batch 4 x 1024 tokens.
 B_TRAIN, SEQ_TRAIN = 4, 1024
+# Phase 24 (b): decode_32k's seq_len (configs/shapes.py) over 4 data ranks.
+SEQ_LONG_LEN, SEQ_LONG_PROMPT, SEQ_LONG_STEPS = 32768, 24574, 6
+SEQ_SLICE = SEQ_LONG_LEN // 4
 
 
 T0 = time.perf_counter()
@@ -256,9 +281,12 @@ def randn(gen, shape, dtype):
     return torch.randn(shape, generator=gen, device=gen.device).to(dtype)
 
 
-def check(name, got, want, dtype, errs):
+def check(name, got, want, dtype, errs, tol=None):
+    """``got`` within (atol, rtol) ``tol`` of ``want``, by default the
+    kernels' ATOL / RTOL of ``dtype``."""
+    atol, rtol = tol or (ATOL[dtype], RTOL[dtype])
     err = (got.float() - want.float()).abs().max().item()
-    ok = torch.allclose(got.float(), want.float(), atol=ATOL[dtype], rtol=RTOL[dtype])
+    ok = torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol)
     log(f"  {name}: max_abs_err {err:.3e} ({'ok' if ok else 'MISMATCH'})")
     if not ok:
         fail(f"{name} disagrees with its plain version")
@@ -272,7 +300,8 @@ def check_kernels(dev, timer):
     from repro_torch.kernels import rmsnorm as rms
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    errs = {"flash_attention": [], "decode_attention": [], "rmsnorm": []}
+    errs = {"flash_attention": [], "decode_attention": [], "decode_attention_lse": [],
+            "rmsnorm": []}
     flash_cases = [  # B, Tq, Tk, Hq, Hkv, D, q_offset, kv_len, causal
         (B_SERVE, PROMPT, MAX_LEN, HQ, HKV, HD, 0, PROMPT, True),   # full-width prefill
         (B_TRAIN, SEQ_TRAIN, SEQ_TRAIN, HQ, HKV, HD, None, None, True),  # full-width training
@@ -352,6 +381,7 @@ def check_kernels(dev, timer):
         check("decode_attention int kv_len", o_int, ref.decode_attention(q, k, v, DECODE_KV),
               dtype, errs["decode_attention"])
         check("decode_attention (B,) kv_len", o_vec, o_int, dtype, errs["decode_attention"])
+        check_lse(gen, dtype, errs["decode_attention_lse"])
         for rows, d in rms_cases:
             x, s = randn(gen, (rows, d), dtype), randn(gen, (d,), torch.float32)
             check(f"rmsnorm rows{rows} d{d}", rms.rmsnorm(x, s), ref.rmsnorm(x, s), dtype,
@@ -361,7 +391,72 @@ def check_kernels(dev, timer):
     moe = [timed(e, timer, errs) for e in forward_entries(gen, G_D_MODEL, G_HD, G_DECODE_KV)]
     jamba = [timed(e, timer, errs)
              for e in forward_entries(gen, J_D_MODEL, HD, DECODE_KV, J_HQ, J_HKV)]
-    return dense, moe, jamba
+    return dense + [timed(lse_entry(gen), timer, errs)], moe, jamba
+
+
+def lse_entry(gen):
+    """K4's variant at phase 24 (b)'s slice (batch 1, 16 / 8 heads of 128,
+    8,192 positions, all of them keys), bf16, with its plain version, its
+    bound (the slice's K and V read once) and the library call that returns
+    o and its log-sum-exp: PyTorch's flash attention with the GQA group as
+    the query length over each KV head (a non-causal one-token decode)."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import ref
+
+    log(f"phase 3: timing K4's log-sum-exp variant at phase 24 (b)'s slice, 1 x {SEQ_SLICE} "
+        f"positions, {HQ} / {HKV} heads of {HD}, bf16")
+    bf = torch.bfloat16
+    q = randn(gen, (1, HQ, HD), bf)
+    k, v = randn(gen, (1, SEQ_SLICE, HKV, HD), bf), randn(gen, (1, SEQ_SLICE, HKV, HD), bf)
+    qg = q.reshape(1, HKV, HQ // HKV, HD)
+    kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    nbytes = q.numel() * 2 + 2 * k.numel() * 2 + q.numel() * 4 + HQ * 4
+    return dict(
+        name="decode_attention_lse", route="cuda",
+        source="src/repro_torch/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:62",
+        fn=lambda: dec.decode_attention(q, k, v, SEQ_SLICE, lse=True),
+        plain=lambda: ref.decode_attention(q, k, v, SEQ_SLICE, lse=True),
+        library=lambda: torch.ops.aten._scaled_dot_product_flash_attention(qg, kt, vt),
+        bound=bound_ms(nbytes, 4 * HD * HQ * SEQ_SLICE, bf))
+
+
+LSE_CASES = [  # B, S, Hq, Hkv, D, kv_len: a rank's slice of a cache split over the sequence
+    (1, SEQ_SLICE, HQ, HKV, HD, SEQ_SLICE),        # phase 24 (b): a whole slice
+    (1, SEQ_SLICE, HQ, HKV, HD, 0),                # an empty one
+    (1, SEQ_SLICE, HQ, HKV, HD, 2 * 256 + 2),      # ends inside a split (BLK_S rows)
+    (3, 1024, HQ, HKV, HD, [1000, 0, 1024]),       # phase 24 (a) on data 4, rows of one batch
+    (1, 2048, HQ // 2, HKV // 2, HD, 2047),        # phase 24 (a) on (2, 2): 8 / 4 heads
+    (2, 333, 8, 2, 64, [0, 300]),
+    (3, 80, 4, 2, 16, [1, 0, 80]),
+]
+
+
+def check_lse(gen, dtype, errs):
+    """K4's log-sum-exp variant against the plain variant at ``LSE_CASES``:
+    o (fp32 whatever the inputs' type) and each row's lse, at the
+    tolerances of tests/test_kernels.py (f32 atol 2e-5, bf16 2e-2); kv_len
+    0 gives exactly o = 0 and lse = NEG_INF."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import ref
+
+    tol = (2e-5, 0.0) if dtype == torch.float32 else (2e-2, 1e-2)
+    for B, S, Hq, Hkv, D, kl in LSE_CASES:
+        q = randn(gen, (B, Hq, D), dtype)
+        k, v = randn(gen, (B, S, Hkv, D), dtype), randn(gen, (B, S, Hkv, D), dtype)
+        kl_t = torch.tensor(kl, device=q.device) if isinstance(kl, list) else kl
+        (o, lse), (wo, wl) = (dec.decode_attention(q, k, v, kl_t, lse=True),
+                              ref.decode_attention(q, k, v, kl_t, lse=True))
+        if o.dtype != torch.float32 or lse.shape != (B, Hq):
+            fail(f"decode_attention_lse returned o {o.dtype}, lse {tuple(lse.shape)}")
+        tag = f"B{B} S{S} Hq{Hq} Hkv{Hkv} D{D} kv_len {kl}"
+        check(f"decode_attention_lse o {tag}", o, wo, dtype, errs, tol)
+        check(f"decode_attention_lse lse {tag}", lse, wl, dtype, errs, tol)
+    o, lse = dec.decode_attention(q, k, v, 0, lse=True)
+    if not (torch.equal(o, torch.zeros_like(o))
+            and torch.equal(lse, torch.full_like(lse, ref.NEG_INF))):
+        fail("decode_attention_lse at kv_len 0 is not o = 0, lse = NEG_INF")
+    log("  decode_attention_lse kv_len 0: o exactly 0, lse exactly NEG_INF (ok)")
 
 
 def forward_entries(gen, d_model, hd, decode_kv, hq=HQ, hkv=HKV):
@@ -778,6 +873,21 @@ def rmsnorms_per_forward(cfg) -> int:
     return len(kinds) + ffn + 2 * cfg.qk_norm * attn_layers(cfg) + 1
 
 
+def serve_launches(cfg, steps, split=False):
+    """Launches of one prefill and ``steps`` decode steps: K1 once per
+    attention layer in the prefill, K4 once per attention layer and step (its
+    log-sum-exp variant where the cache is split over the sequence), K5 as
+    ``rmsnorms_per_forward`` counts for every forward."""
+    from repro_torch.kernels import ops
+
+    want = {name: 0 for name in ops.KERNELS}
+    want.update({"flash_attention": attn_layers(cfg),
+                 "decode_attention_lse" if split else "decode_attention":
+                 attn_layers(cfg) * steps,
+                 "rmsnorm": rmsnorms_per_forward(cfg) * (steps + 1)})
+    return want
+
+
 def train_launches(cfg):
     """Launches of one train step with remat "dots": each group's forward
     runs again in the backward, so K1 and K5 launch twice per layer (the
@@ -887,9 +997,7 @@ def serve(dev, card, cfg, phase, profile_phase):
     # The prefill runs K1 once per attention layer, each decode step K4 once
     # per attention layer; every forward (the prefill and each decode step)
     # runs K5 as rmsnorms_per_forward counts.
-    want = {"flash_attention": attn_layers(cfg), "flash_attention_dq": 0,
-            "flash_attention_dkv": 0, "decode_attention": attn_layers(cfg) * steps,
-            "rmsnorm": rmsnorms_per_forward(cfg) * GEN}
+    want = serve_launches(cfg, steps)
     if counts != want:
         fail(f"launch counts {counts}, want {want}")
     t_pre, t_dec = out["t_prefill"], out["t_decode"]
@@ -902,7 +1010,7 @@ def serve(dev, card, cfg, phase, profile_phase):
     return counts
 
 
-SERVED = {}  # arch -> record_served's runs, for phases 22-23 (b)
+SERVED = {}  # arch -> (its layers, record_served's runs), for phases 22-23 (b)
 
 
 def capture_prefill(prefill_fn, into):
@@ -915,29 +1023,36 @@ def capture_prefill(prefill_fn, into):
     return call
 
 
+def move_one_ulp(params, dev):
+    """Moves every parameter of ``params`` by one ulp of its type, up or
+    down at random (seed 0), in place: a one-ulp twin of the model."""
+    from repro_torch.tree import leaves_with_paths
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for _, p in leaves_with_paths(params):
+        away = torch.empty_like(p).bernoulli_(0.5, generator=gen)
+        p.copy_(torch.nextafter(p, away.mul_(2).sub_(1).mul_(math.inf)))
+        del away
+
+
 def record_served(cfg, prefill_fn, decode_fn, params, dev):
     """Serves ``serve_prompt(cfg)`` for ``GEN`` tokens on one rank, then
     again from every parameter moved by one ulp of its type, up or down at
     random (seed 0): the spread of the one-rank run itself at this cut,
     beside which phases 22-23 (b) set the tensor-parallel run's. Keeps the
-    (greedy tokens, prefill logits) of both runs in ``SERVED``; leaves
-    ``params`` moved."""
+    (greedy tokens, prefill logits) of both runs in ``SERVED``, beside the
+    cut's depth; leaves ``params`` moved."""
     from repro_torch.launch.serve import generate
-    from repro_torch.tree import leaves_with_paths
 
     runs = []
     for twin in (False, True):
         if twin:
-            gen = torch.Generator(device=dev).manual_seed(0)
-            for _, p in leaves_with_paths(params):
-                away = torch.empty_like(p).bernoulli_(0.5, generator=gen)
-                p.copy_(torch.nextafter(p, away.mul_(2).sub_(1).mul_(math.inf)))
-                del away
+            move_one_ulp(params, dev)
         first = []
         out = generate(capture_prefill(prefill_fn, first), decode_fn, params, serve_prompt(cfg),
                        GEN, dev)
         runs.append((out["tokens"], first[0]))
-    SERVED[cfg.name] = runs
+    SERVED[cfg.name] = (cfg.n_layers, runs)
 
 
 KERNEL_GROUPS = (  # (group, substrings of the CUDA kernel name)
@@ -1255,7 +1370,7 @@ def checkpoint_resume():
 # ------------------------------------------------------------ phase 21
 
 DP_MESH = ((2, 2, 1), ("pod", "data", "model"))  # 4 ranks on the one card
-DP_LAYERS = 8           # qwen3-1.7b's 28 cut to 8: 4 ranks share 80 GB
+DP_LAYERS = 4           # qwen3-1.7b's 28 cut to 4: the steps' bytes go through gloo
 DP_STEPS = 2
 DP_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)  # phase 7's
 COLLECTIVES = ("all_gather_into_tensor", "reduce_scatter_tensor", "all_reduce",
@@ -1444,7 +1559,8 @@ def dataplane_rank(rank, world, addr, base_path, out_dir):
 
 def dataplane_baseline():
     """The one-rank baseline of phases 21 (a) and 22 (c): two fp32 steps of
-    8-layer qwen3-1.7b on the whole batch, on the card (``train_baseline``)."""
+    ``DP_LAYERS``-layer qwen3-1.7b on the whole batch, on the card
+    (``train_baseline``)."""
     cfg, model = dataplane_model(torch.float32)
     log(f"phase 21: data plane, {cfg.name} full width cut to {cfg.n_layers} of 28 layers, "
         f"mesh {dict(zip(DP_MESH[1], DP_MESH[0]))} as 4 gloo ranks on one card, global batch "
@@ -1526,7 +1642,7 @@ def train_baseline(cfg, model, twins=0):
 def dataplane(card, baseline):
     """Phase 21: the data plane on the card. Four ranks (spawned processes,
     all on cuda:0) over a (pod=2, data=2, model=1) mesh train full-width
-    qwen3-1.7b cut to 8 layers, global batch 4 x 1024 (one sequence a rank):
+    qwen3-1.7b cut to ``DP_LAYERS``, global batch 4 x 1024 (one sequence a rank):
     FSDP weights streamed per layer group over "data" on K1 / K2 / K3 / K5,
     gradients reduce-scattered and carried over "pod". The group is gloo:
     NCCL refuses two ranks on one device, so every collective goes through
@@ -1605,20 +1721,21 @@ def dataplane(card, baseline):
 TP_SERVE_MESH = ((1, 4), ("data", "model"))  # 4 ranks on the one card
 TP_TRAIN_MESH = ((2, 2), ("data", "model"))
 TP_OPS = ("copy_to_model", "reduce_from_model", "gather_from_model", "vocab_parallel_nll",
-          "exchange_model")
+          "exchange_model", "gather_partials")
 TP_PARITY_LEN, TP_PARITY_T = 80, 61
 PHI3_LAYERS = 4  # of phi3-medium-14b's 40: gloo's ~500 MiB/s, ~30 s a prefill at 40
 TP_TWINS = 3  # phase 23 (c)'s twins of the one-rank baseline (train_baseline)
 
 
 def tp_serve_cfg(arch):
-    """The serving cut of ``arch`` in phases 22-23: jamba-v0.1-52b's first
-    period (phase 16's), phi3-medium-14b's first ``PHI3_LAYERS``, the others
-    whole."""
+    """The serving cut of ``arch`` in phases 22-23: the first period of
+    jamba-v0.1-52b (phase 16's) and of xlstm-1.3b (8 of its 48 layers: the
+    whole model's TP prefill moved 24.1 GiB over gloo, ~45 s), the first
+    ``PHI3_LAYERS`` of phi3-medium-14b, the others whole."""
     from repro_torch.configs import registry
 
     cfg = registry.get(arch)
-    if arch == JAMBA:
+    if arch in (JAMBA, XLSTM):
         return dataclasses.replace(cfg, n_layers=8, block_pattern=cfg.block_types()[:8])
     if arch == PHI3:
         return dataclasses.replace(cfg, n_layers=PHI3_LAYERS)
@@ -1704,8 +1821,8 @@ def tp_collectives(cfg, rows, tokens, pos, elem, M=4):
 
 def tp_train_collectives(cfg):
     """Collective calls of one streamed train step on (data=2, model=2)
-    with remat "dots", per rank, of phase 22's 8-layer qwen3-1.7b (8 layer
-    groups) or phase 23's xlstm-1.3b period (one group of 7 mLSTM + 1 sLSTM).
+    with remat "dots", per rank, of phase 21's qwen3-1.7b cut (one layer
+    group a layer) or phase 23's xlstm-1.3b period (one group of 7 mLSTM + 1 sLSTM).
     qwen: reduce_from_model sums the lookup's rows and each layer's
     attention and FFN partials (1 + 2L), and each attention partial again
     in the recompute (the FFN's is the group's last: the checkpoint's
@@ -1726,12 +1843,14 @@ def tp_train_collectives(cfg):
     L, G = cfg.n_layers, n_groups(cfg)
     if cfg.block_types() == ("attn",) * L:
         tp = {"reduce_from_model": 1 + 3 * L, "copy_to_model": 2 * L + 1,
-              "gather_from_model": 0, "vocab_parallel_nll": 2, "exchange_model": 0}
+              "gather_from_model": 0, "vocab_parallel_nll": 2, "exchange_model": 0,
+              "gather_partials": 0}
     else:
         assert cfg.block_types() == ("mlstm",) * 7 + ("slstm",) and G == 1
         fwd = 1 + 3 * 7 + 1
         tp = {"copy_to_model": 4 * 7 + 1 + 1, "reduce_from_model": fwd + fwd - 2,
-              "gather_from_model": 0, "vocab_parallel_nll": 2, "exchange_model": 3 * (7 + 2)}
+              "gather_from_model": 0, "vocab_parallel_nll": 2, "exchange_model": 3 * (7 + 2),
+              "gather_partials": 0}
     return tp, {"all_reduce": sum(v for k, v in tp.items() if k != "exchange_model") + 4,
                 "all_gather_into_tensor": 1 + 2 * G, "reduce_scatter_tensor": G + 1,
                 "all_to_all_single": tp["exchange_model"]}
@@ -1827,9 +1946,7 @@ def tp_serve_rank(rank, mesh, archs, out):
                            params, prompt, GEN, dev)
         launches = ops.launch_counts()
         steps = GEN - 1
-        want = {"flash_attention": attn_layers(cfg), "flash_attention_dq": 0,
-                "flash_attention_dkv": 0, "decode_attention": attn_layers(cfg) * steps,
-                "rmsnorm": rmsnorms_per_forward(cfg) * GEN}
+        want = serve_launches(cfg, steps)
         if launches != want:
             raise AssertionError(f"{arch}: launches {launches}, want {want}")
         if not res["finite"]:
@@ -2061,9 +2178,10 @@ def tp_train_verdict(steps, leaves, base_metrics, norm_rtol, spread):
 
 
 def tensor_parallel(card, phase, baseline):
-    """Phase 22 (qwen3-1.7b, granite-moe-1b-a400m; (c) 8-layer qwen) or 23
-    (jamba-v0.1-52b's period, xlstm-1.3b, 4-layer phi3-medium-14b; (c) one
-    xlstm period): tensor parallelism over "model" on the card. Four ranks
+    """Phase 22 (qwen3-1.7b, granite-moe-1b-a400m; (c) phase 21's qwen) or 23
+    (the first period of jamba-v0.1-52b and xlstm-1.3b, 4-layer
+    phi3-medium-14b; (c) one xlstm period): tensor parallelism over "model"
+    on the card. Four ranks
     (spawned processes, all on cuda:0, one gloo group: NCCL refuses two
     ranks on one device) (a) hold each arch's 2-layer full-width cut (fp32)
     on (data=1, model=4) to one rank on the card: prefill + 2 decode logits
@@ -2071,7 +2189,8 @@ def tensor_parallel(card, phase, baseline):
     each arch's serving cut (bf16) as phase 5 with exact launch and
     collective counts (``tp_collectives``), the greedy tokens and prefill
     logits beside the one-rank run's and its one-ulp twin's
-    (``record_served``); (c) train for two steps (fp32) on (data=2,
+    (``record_served``, run here for a cut that phases 5-18 did not serve);
+    (c) train for two steps (fp32) on (data=2,
     model=2) against ``baseline``, the one-rank steps (``train_baseline``),
     leaf by leaf (``leaf_bounds``), and where the phase plants a fault, show
     that the same comparison fails it. Returns the ranks' kernel launches of
@@ -2094,6 +2213,14 @@ def tensor_parallel(card, phase, baseline):
         f"(a) parity and (b) serving on {dict(zip(TP_SERVE_MESH[1], TP_SERVE_MESH[0]))}, (c) "
         f"training on {dict(zip(TP_TRAIN_MESH[1], TP_TRAIN_MESH[0]))}")
     dev = torch.device("cuda", 0)
+    for arch in archs:  # (b)'s one-rank runs of the cuts that phases 5-18 did not serve
+        cfg = tp_serve_cfg(arch)
+        if SERVED.get(arch, (None,))[0] != cfg.n_layers:
+            model = zoo.build(cfg, dtype=torch.bfloat16, device=dev)
+            params = model.init(torch.Generator(device=dev).manual_seed(0))
+            record_served(cfg, *build_serve_fns(model, MAX_LEN, dev), params, dev)
+            del model, params
+            torch.cuda.empty_cache()
     one = {}
     for arch in archs:  # (a)'s one-rank runs on the card
         cfg = two_layers(arch)
@@ -2155,18 +2282,15 @@ def tensor_parallel(card, phase, baseline):
                 f" (exact, tp_collectives); peak memory allocated {b['peak_gib']:.2f} GiB; "
                 f"walls over gloo through host memory [{card}]")
         b = ranks[0][f"b/{arch}"]
-        if arch in SERVED:  # phases 5 / 11 / 16 / 18; none for phi3's cut
-            (tokens, logits), (twin_tokens, twin_logits) = SERVED[arch]
-            log(f"  (b) {arch}: greedy tokens equal to the one-rank run's: "
-                f"{int((b['tokens'] == tokens).sum())} of {tokens.size} (first tokens "
-                f"{int((b['tokens'][:, 0] == tokens[:, 0]).sum())} of {len(tokens)}); its one-ulp "
-                f"twin's: {int((twin_tokens == tokens).sum())} of {tokens.size} (first tokens "
-                f"{int((twin_tokens[:, 0] == tokens[:, 0]).sum())} of {len(tokens)}). Prefill "
-                f"logits, max |4 ranks - 1 rank| {(b['prefill_logits'] - logits).abs().max():.4f}, "
-                f"|twin - 1 rank| {(twin_logits - logits).abs().max():.4f} (the one-rank logits' "
-                f"std {logits.std():.4f}, bf16)")
-        else:
-            log(f"  (b) {arch}: no one-rank run of this cut to set the tokens beside")
+        (tokens, logits), (twin_tokens, twin_logits) = SERVED[arch][1]  # this cut's one rank
+        log(f"  (b) {arch}: greedy tokens equal to the one-rank run's: "
+            f"{int((b['tokens'] == tokens).sum())} of {tokens.size} (first tokens "
+            f"{int((b['tokens'][:, 0] == tokens[:, 0]).sum())} of {len(tokens)}); its one-ulp "
+            f"twin's: {int((twin_tokens == tokens).sum())} of {tokens.size} (first tokens "
+            f"{int((twin_tokens[:, 0] == tokens[:, 0]).sum())} of {len(tokens)}). Prefill "
+            f"logits, max |4 ranks - 1 rank| {(b['prefill_logits'] - logits).abs().max():.4f}, "
+            f"|twin - 1 rank| {(twin_logits - logits).abs().max():.4f} (the one-rank logits' "
+            f"std {logits.std():.4f}, bf16)")
         prof, A = ranks[0][f"b/{arch}"]["profile"], attn_layers(cfg)
         if A and "prefill" in prof and "decode" in prof:
             k1 = prof["prefill"].get("flash_attention", 0.0)
@@ -2240,6 +2364,287 @@ def tensor_parallel(card, phase, baseline):
     return totals
 
 
+# ------------------------------------------------------------ phase 24
+
+SEQ_MESHES = (((4, 1), ("data", "model")), ((2, 2), ("data", "model")))  # 4 ranks, one card
+SEQ_PARITY_LEN, SEQ_PARITY_STEPS = 4096, 4
+SEQ_PARITY = ((3, 3070), (1, 2046))  # (a)'s (batch, prompt) on each mesh
+
+
+def seq_prompt(cfg, B, T):
+    """B prompts of T tokens from a seed."""
+    return torch.randint(1, cfg.vocab_size, (B, T), generator=torch.Generator().manual_seed(5))
+
+
+def seq_run(prefill_fn, decode_fn, params, prompt, follow):
+    """A prefill of ``prompt`` and one decode step per column of ``follow``
+    (B, steps), each fed that column, or with ``follow`` an int that many
+    steps, each fed the last step's greedy token. Per call: the logits
+    (fp32, host), the region operators' (``tp_counts``) and the collectives'
+    calls and bytes, the wall (ending in a synchronize); the greedy tokens
+    (B, steps + 1) and the cache's bytes."""
+    from repro_torch.core import collective as C
+    from repro_torch.tree import leaves
+
+    counted, logits, calls, walls = CountedCollectives(), [], [], []
+
+    def call(fn, *args):
+        counted.reset()
+        C.reset_tp_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with counted:
+            out, cache = fn(*args)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        calls.append((C.tp_counts(), {n: c for n, (c, _) in counted.calls.items()},
+                      {n: b for n, (_, b) in counted.calls.items()}))
+        logits.append(out.float().cpu())
+        return cache
+
+    cache = call(prefill_fn, params, {"tokens": prompt})
+    steps = follow if isinstance(follow, int) else follow.shape[1]
+    for i in range(steps):
+        tok = (logits[-1].argmax(-1)[:, None] if isinstance(follow, int)
+               else follow[:, i:i + 1])
+        cache = call(decode_fn, params, cache, {"tokens": tok})
+    logits = torch.stack(logits)
+    return {"logits": logits, "tokens": logits.argmax(-1).T.contiguous(), "calls": calls,
+            "walls": walls, "cache_bytes": sum(t.numel() * t.element_size()
+                                               for t in leaves(cache["layers"]))}
+
+
+def seq_collectives(cfg, rows, tokens, pos, elem, M, heads):
+    """Region-operator calls and bytes, and collective calls, of one prefill
+    (``tokens`` a row at position 0) or decode step (1 token at ``pos``) per
+    rank, every row on every rank and the attention caches split over
+    "data": over "model" ``tp_collectives``' where M > 1 (none where M =
+    1); per attention layer of a decode step one gather of the partials, a
+    rank's rows x ``heads`` x (D + 1) fp32 (o and lse), one
+    all_gather_into_tensor."""
+    if M > 1:
+        tp, calls = tp_collectives(cfg, rows, tokens, pos, elem, M)
+    else:
+        tp = {name: (0, 0) for name in TP_OPS}
+        calls = {"all_reduce": 0, "all_gather_into_tensor": 0, "reduce_scatter_tensor": 0,
+                 "all_to_all_single": 0}
+    if pos:
+        A = attn_layers(cfg)
+        tp["gather_partials"] = (A, A * rows * heads * (cfg.head_dim + 1) * 4)
+        calls["all_gather_into_tensor"] += A
+    return tp, calls
+
+
+def seq_checked(name, res, cfg, B, T, elem, M, heads):
+    """Raises unless every call of ``res`` moved what ``seq_collectives``
+    predicts."""
+    for i, (tp, calls, _) in enumerate(res["calls"]):
+        want_tp, want_calls = seq_collectives(cfg, B, T if i == 0 else 1,
+                                              0 if i == 0 else T + i - 1, elem, M, heads)
+        if tp != want_tp or calls != want_calls:
+            raise AssertionError(f"{name} call {i}: region operators {tp}, collectives {calls}; "
+                                 f"want {want_tp}, {want_calls}")
+
+
+def seq_rank(rank, world, addr, tmp):
+    """One rank of phase 24 (a spawned process): (a) on both meshes, then
+    (b) on (data=4, model=1), each decode step fed the one-rank run's greedy
+    tokens (``tmp/seq_feeds.pt``). Checks launches and collective calls
+    itself; writes its findings to ``tmp/seq_rank<r>.pt``."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import zoo
+    from repro_torch.runtime.serve import build_serve_fns
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=addr, rank=rank, world_size=world)
+    try:
+        dev = torch.device("cuda", 0)
+        feeds = torch.load(os.path.join(tmp, "seq_feeds.pt"))
+        meshes = [make_mesh(*m, device_type="cuda") for m in SEQ_MESHES]
+        out = {"rank": rank, "launches": {}}
+
+        def run(key, fns, params, cfg, B, T, elem, M, heads):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            res = seq_run(*fns, params, *feeds[key])
+            res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            launches = ops.launch_counts()
+            steps = len(res["walls"]) - 1
+            if launches != serve_launches(cfg, steps, split=True):
+                raise AssertionError(f"{key}: launches {launches}, want "
+                                     f"{serve_launches(cfg, steps, split=True)}")
+            seq_checked(key, res, cfg, B, T, elem, M, heads)
+            for k, v in launches.items():
+                out["launches"][k] = out["launches"].get(k, 0) + v
+            return res
+
+        cfg = two_layers(DENSE)
+        for (sizes, _), mesh in zip(SEQ_MESHES, meshes):
+            model = zoo.build(cfg, dtype=torch.float32, device=dev)
+            params = sharded_init(model, mesh, 1, dev)
+            fns = build_serve_fns(model, SEQ_PARITY_LEN, dev, mesh)
+            for B, T in SEQ_PARITY:
+                res = run(f"a/{B}", fns, params, cfg, B, T, 4, sizes[1], cfg.n_heads // sizes[1])
+                out[f"a/{sizes}/{B}"] = {k: res[k] for k in ("logits", "calls", "cache_bytes",
+                                                              "walls", "peak_gib")}
+            del model, params, fns
+            torch.cuda.empty_cache()
+
+        cfg = registry.get(DENSE)
+        model = zoo.build(cfg, dtype=torch.bfloat16, device=dev)
+        params = sharded_init(model, meshes[0], 0, dev)
+        fns = build_serve_fns(model, SEQ_LONG_LEN, dev, meshes[0])
+        seq_run(*fns, params, feeds["b"][0][:, :64], 2)  # warm-up (cuBLAS picks its kernels)
+        out["b"] = run("b", fns, params, cfg, 1, SEQ_LONG_PROMPT, 2, 1, cfg.n_heads)
+        del model, params, fns
+        torch.cuda.empty_cache()
+        torch.save(out, os.path.join(tmp, f"seq_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def seq_split(card):
+    """Phase 24: serving a batch that divides no data-parallel split, each
+    attention cache split over "data" (``sharding.serve_plan``'s case 3),
+    decode attention on K4's log-sum-exp variant with the ranks' partials
+    merged. First the one-rank whole-cache runs on the card (greedy), then
+    four ranks (spawned processes, all on cuda:0, one gloo group) (a) serve
+    2-layer qwen3-1.7b in fp32 on (data=4, model=1) and (data=2, model=2),
+    (b) full qwen3-1.7b in bf16 at decode_32k's length on (data=4, model=1),
+    each decode step fed the one-rank run's token; beside (b), the one-rank
+    run again from every parameter moved one ulp (``move_one_ulp``), fed
+    the same tokens: its own bf16 spread. Returns the ranks' kernel
+    launches, summed."""
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import registry
+    from repro_torch.models import zoo
+    from repro_torch.runtime.serve import build_serve_fns
+
+    log(f"phase 24: a batch that splits over no data-parallel ranks, every attention cache "
+        f"split over the sequence, 4 gloo ranks on one card: (a) 2-layer qwen3-1.7b, fp32, "
+        f"cache {SEQ_PARITY_LEN}, (batch, prompt) {SEQ_PARITY}, on "
+        f"{[dict(zip(n, m)) for m, n in SEQ_MESHES]}; (b) full qwen3-1.7b, bf16, cache "
+        f"{SEQ_LONG_LEN} ({SEQ_SLICE} a rank), batch 1, prompt {SEQ_LONG_PROMPT}, "
+        f"{SEQ_LONG_STEPS} decode steps")
+    dev = torch.device("cuda", 0)
+    tmp = tempfile.mkdtemp(prefix="seq-", dir=os.path.join(ROOT, "build"))
+    one, feeds = {}, {}
+    cfg = two_layers(DENSE)
+    model = zoo.build(cfg, dtype=torch.float32, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(1))
+    fns = build_serve_fns(model, SEQ_PARITY_LEN, dev)
+    for B, T in SEQ_PARITY:
+        prompt = seq_prompt(cfg, B, T)
+        one[f"a/{B}"] = seq_run(*fns, params, prompt, SEQ_PARITY_STEPS)
+        feeds[f"a/{B}"] = (prompt, one[f"a/{B}"]["tokens"][:, :SEQ_PARITY_STEPS])
+    del model, params, fns
+    cfg_b = registry.get(DENSE)
+    model = zoo.build(cfg_b, dtype=torch.bfloat16, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    fns = build_serve_fns(model, SEQ_LONG_LEN, dev)
+    prompt = seq_prompt(cfg_b, 1, SEQ_LONG_PROMPT)
+    seq_run(*fns, params, prompt[:, :64], 2)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    one["b"] = seq_run(*fns, params, prompt, SEQ_LONG_STEPS)
+    one["b"]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    feeds["b"] = (prompt, one["b"]["tokens"][:, :SEQ_LONG_STEPS])
+    move_one_ulp(params, dev)  # the one-rank run's own bf16 spread, beside which (b)'s is read
+    twin = seq_run(*fns, params, *feeds["b"])
+    del model, params, fns
+    torch.cuda.empty_cache()
+    torch.save(feeds, os.path.join(tmp, "seq_feeds.pt"))
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    mp.spawn(seq_rank, args=(4, f"tcp://localhost:{port}", tmp), nprocs=4)
+    log(f"  4 ranks ran in {time.perf_counter() - t0:.1f} s")
+    ranks = [torch.load(os.path.join(tmp, f"seq_rank{r}.pt"), weights_only=False)
+             for r in range(4)]
+    shutil.rmtree(tmp)
+
+    def per_call(calls):
+        return "; ".join(f"{what}: " + ", ".join(
+            f"{n} {c[n]} calls {b[n]} B" for n in c if c[n]) + " (" + ", ".join(
+            f"{n} {k} calls {v} B" for n, (k, v) in tp.items() if k) + ")"
+            for what, (tp, c, b) in (("prefill", calls[0]), ("decode step", calls[1])))
+
+    # (a) parity in fp32 against the one-rank whole-cache run.
+    for sizes, names in SEQ_MESHES:
+        for B, T in SEQ_PARITY:
+            want = one[f"a/{B}"]["logits"]
+            for res in ranks:
+                got = res[f"a/{sizes}/{B}"]
+                err = (got["logits"] - want).abs().max().item()
+                if not torch.allclose(got["logits"], want, rtol=2e-4, atol=2e-4):
+                    fail(f"phase 24 (a) {dict(zip(names, sizes))} batch {B}: rank {res['rank']} "
+                         f"logits differ from one rank's by {err}")
+                log(f"  (a) {dict(zip(names, sizes))} batch {B}, prompt {T}, fp32, rank "
+                    f"{res['rank']}: prefill + {SEQ_PARITY_STEPS} decode logits, max |4 ranks - "
+                    f"1 rank| {err:.3e} (rtol/atol 2e-4); prefill {got['walls'][0] * 1e3:.1f} "
+                    f"ms, decode step median {statistics.median(got['walls'][1:]) * 1e3:.2f} ms; "
+                    f"peak memory allocated {got['peak_gib']:.2f} GiB; cache "
+                    f"{got['cache_bytes']} B; " + per_call(got["calls"])
+                    + f" (exact, seq_collectives) [{card}]")
+
+    # (b) decode_32k's length in bf16.
+    want = one["b"]
+    top2 = want["logits"].topk(2, -1).values
+    margins = (top2[..., 0] - top2[..., 1]).tolist()  # (steps + 1, B): batch 1
+    for res in ranks:
+        got = res["b"]
+        for i, (a, b) in enumerate(zip(got["tokens"][0].tolist(), want["tokens"][0].tolist())):
+            diff = (got["logits"][i] - want["logits"][i]).abs().max().item()
+            if a != b:
+                if not margins[i][0] < diff:
+                    fail(f"phase 24 (b): rank {res['rank']} step {i} token {a}, one rank's {b}, "
+                         f"top-2 margin {margins[i][0]:.4f} not below the logits' difference "
+                         f"{diff:.4f}")
+                log(f"  (b) rank {res['rank']} step {i}: token {a} vs one rank's {b}, a "
+                    f"near-tie (top-2 margin {margins[i][0]:.4f} < |d logits| {diff:.4f})")
+        err = rel_l2(got["logits"], want["logits"])
+        if not err <= 2e-2:
+            fail(f"phase 24 (b): rank {res['rank']} logits rel_l2 {err} against one rank's")
+        n_eq = int((got["tokens"] == want["tokens"]).sum())
+        steps = [f"{rel_l2(g, w):.3e}" for g, w in zip(got["logits"], want["logits"])]
+        log(f"  (b) rank {res['rank']}: greedy tokens equal to one rank's {n_eq} of "
+            f"{want['tokens'].numel()}, logits rel_l2 {err:.3e} (2e-2; the prefill's and each "
+            f"step's {', '.join(steps)}); prefill "
+            f"{got['walls'][0] * 1e3:.1f} ms, decode step median "
+            f"{statistics.median(got['walls'][1:]) * 1e3:.2f} ms (walls over gloo through host "
+            f"memory); peak memory allocated {got['peak_gib']:.2f} GiB; cache "
+            f"{got['cache_bytes'] / 2**20:.1f} MiB; " + per_call(got["calls"])
+            + f" (exact, seq_collectives) [{card}]")
+    log(f"  (b) one rank, whole cache: prefill {want['walls'][0] * 1e3:.1f} ms, decode step "
+        f"median {statistics.median(want['walls'][1:]) * 1e3:.2f} ms, peak memory allocated "
+        f"{want['peak_gib']:.2f} GiB, cache {want['cache_bytes'] / 2**20:.1f} MiB; top-2 margins "
+        f"a step {[round(m[0], 4) for m in margins]} [{card}]")
+    log(f"  (b) its one-ulp twin (every parameter moved one bf16 ulp; reported, not gated): "
+        f"greedy tokens equal {int((twin['tokens'] == want['tokens']).sum())} of "
+        f"{want['tokens'].numel()}, logits rel_l2 {rel_l2(twin['logits'], want['logits']):.3e} "
+        f"(the prefill's and each step's " + ", ".join(
+            f"{rel_l2(g, w):.3e}" for g, w in zip(twin["logits"], want["logits"])) + ")")
+    total = {}
+    for res in ranks:
+        for k, v in res["launches"].items():
+            total[k] = total.get(k, 0) + v
+    log(f"  launches per rank as derived (serve_launches, the variant for every split decode "
+        f"step); phase 24 launches in all: {total}")
+    return total
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -2303,6 +2708,7 @@ def main() -> int:
     for arch, c in tensor_parallel(card, 23, baseline).items():
         counts[arch, "tp23"] = c
     shutil.rmtree(baseline[1])
+    counts[DENSE, "seq24"] = seq_split(card)
     for e in kernels:
         e["launches"] = sum(c[e["name"]] for c in counts.values())
     for e in kernels_d64:

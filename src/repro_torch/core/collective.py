@@ -45,6 +45,16 @@ Functions over the "model" group of a ``ModelParallel`` context):
                      ``[x | z]`` projections, KV heads that do not split
                      whole, the cache's head-dim slices).
 
+A cache split over the sequence (a ``SeqSplit`` context over "data": each
+rank holds a slice of every attention cache's positions) adds one more:
+
+  gather_partials    a decode step's partial attention of this rank's
+                     slice, o and its log-sum-exp packed as (B, H, D + 1)
+                     fp32, gathered from every rank of the "data" group (one
+                     all-gather); the ranks merge them by the log-sum-exp
+                     rule (``kernels/ref.py::merge_partials``). Serving only,
+                     no backward.
+
 Each counts the collectives it issues and their bytes (``tp_counts``). A
 rematerialised region runs its forward again in the backward, so a
 ``reduce_from_model`` inside it runs again there, at the same point on
@@ -286,8 +296,20 @@ class ModelParallel:
     size: int
 
 
+@dataclasses.dataclass(frozen=True)
+class SeqSplit:
+    """The sequence split an attention layer reads: the "data" group over
+    which every attention cache's positions are split, this rank's index on
+    it, its size, and the positions a rank holds (``length``): rank r holds
+    positions [r * length, (r + 1) * length)."""
+    group: Any
+    index: int
+    size: int
+    length: int
+
+
 TP_OPS = ("copy_to_model", "reduce_from_model", "gather_from_model", "vocab_parallel_nll",
-          "exchange_model")
+          "exchange_model", "gather_partials")
 _tp_counts: Dict[str, List[int]] = {name: [0, 0] for name in TP_OPS}
 
 
@@ -413,6 +435,15 @@ def vocab_parallel_nll(tp: ModelParallel, logits: torch.Tensor, labels: torch.Te
     value as ``log_softmax`` + ``gather`` over the full logits, on every
     rank, and the gradient of the local slice."""
     return _VocabParallelNLL.apply(tp.group, logits, labels, tp.index * logits.shape[-1])
+
+
+def gather_partials(seq: SeqSplit, packed: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``packed`` (B, H, D + 1) fp32 partial (o, then lse in
+    the last column) of the "data" group, stacked in rank order:
+    (seq.size, B, H, D + 1), from one all-gather."""
+    packed = packed.contiguous()
+    _count("gather_partials", packed)
+    return all_gather_dim(packed[None], 0, seq.group)
 
 
 # A set of columns: [start, stop) ranges of a global index space, in order.

@@ -49,6 +49,16 @@
 //   cache), a tail of a few hundred bytes per head read from L2.
 // One int kv_len for the whole batch comes as a scalar argument (null
 // pointer), so the caller fills no (B,) tensor for it.
+//
+// The variant with its log-sum-exp (template flag kLse, entry point
+// decode_attention_lse): for a cache split over the sequence across ranks,
+// each rank's attention over its slice is a partial that the ranks merge by
+// combine_splits' rule, so it needs o in fp32 (not rounded to the inputs'
+// type) and each row's lse. The last block's merge already holds the running max mg and
+// sum lg of every head; with kLse it stores o in fp32, and one thread per
+// query head stores lse = ln 2 (mg + log2 lg) (the scores are in the exp2
+// domain), or NEG_INF where kv_len = 0 (o = 0 there too). Same grid, same
+// reads: the o-only instantiation is unchanged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,10 +66,13 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kStages = 2;        // chunks in flight per warp (tools/k4_variants.py)
@@ -302,8 +315,9 @@ __device__ __forceinline__ void split_partial(const T* __restrict__ q, const T* 
 }
 
 // Counts the block in on the counter of its (batch, head block); the block
-// that arrives last merges the valid splits of its heads and writes o in T,
-// then resets the counter to 0 for the next launch. Every block of the
+// that arrives last merges the valid splits of its heads and writes o in OT
+// (T, or fp32 for the variant, which also writes each head's lse), then
+// resets the counter to 0 for the next launch. Every block of the
 // grid counts in, a split past kv_len too, so the last one is the grid's
 // nsplit-th whatever kv_len each row has. One thread's acq_rel atomic
 // publishes the block's partial (written before the barrier) and, in the
@@ -311,11 +325,12 @@ __device__ __forceinline__ void split_partial(const T* __restrict__ q, const T* 
 // The merge is the block's tail on the critical path, so each thread
 // issues the loads of C splits of its elements at once and merges them
 // online (one L2 round trip per C splits).
-template <typename T, int D, int GB>
+template <typename OT, int D, int GB, bool kLse>
 __device__ __forceinline__ void count_in_and_merge(const float* __restrict__ ws,
-                                                   int* __restrict__ counter, T* __restrict__ o,
-                                                   int B, int b, int hk, int g0, int G, int klen,
-                                                   int Hq, int nsplit, int blk_s) {
+                                                   int* __restrict__ counter, OT* __restrict__ o,
+                                                   float* __restrict__ lse, int B, int b, int hk,
+                                                   int g0, int G, int klen, int Hq, int nsplit,
+                                                   int blk_s) {
   constexpr int E = (GB * D + kThreads - 1) / kThreads;  // output elements per thread
   constexpr int C = E <= 2 ? 8 : 4;                       // splits per round of loads
   // The flag lives in the first word of the ring, idle by now: a static
@@ -378,8 +393,11 @@ __device__ __forceinline__ void count_in_and_merge(const float* __restrict__ ws,
 #pragma unroll
   for (int e = 0; e < E; ++e) {
     const int i = threadIdx.x + e * kThreads, g = i / D, d = i % D;
-    if (i < GB * D && g0 + g < G)  // kv_len = 0: o = 0
-      o[((size_t)b * Hq + hk * G + g0 + g) * D + d] = from_f<T>(a[e] / fmaxf(lg[e], 1e-30f));
+    if (i < GB * D && g0 + g < G) {  // kv_len = 0: o = 0 (and lse = NEG_INF)
+      const size_t row = (size_t)b * Hq + hk * G + g0 + g;
+      o[row * D + d] = from_f<OT>(a[e] / fmaxf(lg[e], 1e-30f));
+      if (kLse && d == 0) lse[row] = lg[e] > 0.f ? kLn2 * (mg[e] + log2f(lg[e])) : kNegInf;
+    }
   }
 }
 
@@ -387,12 +405,13 @@ __device__ __forceinline__ void count_in_and_merge(const float* __restrict__ ws,
 // split's KV heads are launched together, so they read neighbouring bytes
 // of the same cache rows at about the same time. A block takes GB query
 // heads of one KV head's group and one split: its partial, then its count.
-template <typename T, int D, int GB>
+template <typename T, int D, int GB, bool kLse>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               const int* __restrict__ kv_len, int klen_s, float* __restrict__ ws,
-              int* __restrict__ counters, T* __restrict__ o, int B, int S, int Hq, int Hkv,
-              int nsplit, int blk_s, float scale) {
+              int* __restrict__ counters, void* __restrict__ o, float* __restrict__ lse, int B,
+              int S, int Hq, int Hkv, int nsplit, int blk_s, float scale) {
+  using OT = typename std::conditional<kLse, float, T>::type;
   const int hb = blockIdx.x, si = blockIdx.y, b = blockIdx.z;
   const int G = Hq / Hkv, nhb = (G + GB - 1) / GB;
   const int hk = hb / nhb, g0 = (hb % nhb) * GB;
@@ -401,8 +420,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   if (s0 < klen)  // else no valid key in this split
     split_partial<T, D, GB>(q, k, v, ws, B, b, si, hk, g0, G, s0, min(blk_s, klen - s0), S, Hq,
                             Hkv, nsplit, scale);
-  count_in_and_merge<T, D, GB>(ws, counters + (size_t)b * Hkv * nhb + hb, o, B, b, hk, g0, G,
-                               klen, Hq, nsplit, blk_s);
+  count_in_and_merge<OT, D, GB, kLse>(ws, counters + (size_t)b * Hkv * nhb + hb,
+                                      static_cast<OT*>(o), lse, B, b, hk, g0, G, klen, Hq,
+                                      nsplit, blk_s);
 }
 
 template <int D, int GB>
@@ -410,44 +430,58 @@ constexpr size_t smem_bytes() {
   return (size_t)kWarps * kStages * 2 * kChunkBytes + sizeof(float) * kWarps * GB * (D + 2);
 }
 
-template <typename T, int D, int GB>
+template <typename T, int D, int GB, bool kLse>
 int launch(const void* q, const void* k, const void* v, const void* kv_len, int klen_s, void* ws,
-           void* counters, void* o, int B, int S, int Hq, int Hkv, int nsplit, int blk_s,
-           float scale, cudaStream_t stream) {
+           void* counters, void* o, void* lse, int B, int S, int Hq, int Hkv, int nsplit,
+           int blk_s, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D, GB>();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      decode_kernel<T, D, GB>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      decode_kernel<T, D, GB, kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
   const int G = Hq / Hkv;
   dim3 grid(Hkv * ((G + GB - 1) / GB), nsplit, B);
-  decode_kernel<T, D, GB><<<grid, kThreads, smem, stream>>>(
+  decode_kernel<T, D, GB, kLse><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int*>(kv_len), klen_s, static_cast<float*>(ws),
-      static_cast<int*>(counters), static_cast<T*>(o), B, S, Hq, Hkv, nsplit, blk_s, scale);
+      static_cast<int*>(counters), o, static_cast<float*>(lse), B, S, Hq, Hkv, nsplit, blk_s,
+      scale);
   return (int)cudaGetLastError();
 }
 
 using LaunchFn = int (*)(const void*, const void*, const void*, const void*, int, void*, void*,
-                         void*, int, int, int, int, int, int, float, cudaStream_t);
+                         void*, void*, int, int, int, int, int, int, float, cudaStream_t);
 
 // Heads per block: the group rounded up to 1, 2, 4 or 8; larger groups are
 // cut into blocks of 8 heads (each reads the cache rows again).
-template <typename T, int D>
+template <typename T, int D, bool kLse>
 LaunchFn pick_heads(int G) {
-  if (G <= 1) return launch<T, D, 1>;
-  if (G <= 2) return launch<T, D, 2>;
-  if (G <= 4) return launch<T, D, 4>;
-  return launch<T, D, 8>;
+  if (G <= 1) return launch<T, D, 1, kLse>;
+  if (G <= 2) return launch<T, D, 2, kLse>;
+  if (G <= 4) return launch<T, D, 4, kLse>;
+  return launch<T, D, 8, kLse>;
 }
 
-template <typename T>
+template <typename T, bool kLse>
 LaunchFn pick(int D, int G) {
   switch (D) {
-    case 16: return pick_heads<T, 16>(G);
-    case 64: return pick_heads<T, 64>(G);
-    case 128: return pick_heads<T, 128>(G);
+    case 16: return pick_heads<T, 16, kLse>(G);
+    case 64: return pick_heads<T, 64, kLse>(G);
+    case 128: return pick_heads<T, 128, kLse>(G);
     default: return nullptr;
   }
+}
+
+template <bool kLse>
+int run(const void* q, const void* k, const void* v, const void* kv_len, int klen_s, void* ws,
+        void* counters, void* o, void* lse, int B, int S, int Hq, int Hkv, int D, int nsplit,
+        int blk_s, float scale, int dtype, void* stream) {
+  const int G = Hq / Hkv;
+  const LaunchFn f = dtype == 0   ? pick<float, kLse>(D, G)
+                     : dtype == 1 ? pick<__nv_bfloat16, kLse>(D, G)
+                                  : nullptr;
+  if (f == nullptr) return -1;
+  return f(q, k, v, kv_len, klen_s, ws, counters, o, lse, B, S, Hq, Hkv, nsplit, blk_s, scale,
+           static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -463,11 +497,18 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v, con
                                 int klen_s, void* ws, void* counters, void* o, int B, int S,
                                 int Hq, int Hkv, int D, int nsplit, int blk_s, float scale,
                                 int dtype, void* stream) {
-  const int G = Hq / Hkv;
-  const LaunchFn f = dtype == 0   ? pick<float>(D, G)
-                     : dtype == 1 ? pick<__nv_bfloat16>(D, G)
-                                  : nullptr;
-  if (f == nullptr) return -1;
-  return f(q, k, v, kv_len, klen_s, ws, counters, o, B, S, Hq, Hkv, nsplit, blk_s, scale,
-           static_cast<cudaStream_t>(stream));
+  return run<false>(q, k, v, kv_len, klen_s, ws, counters, o, nullptr, B, S, Hq, Hkv, D, nsplit,
+                    blk_s, scale, dtype, stream);
+}
+
+// The variant: as decode_attention, but o (B,Hq,D) is float32 whatever the
+// inputs' type, and lse (B,Hq) float32 receives each row's natural-log
+// log-sum-exp of the scaled scores below kv_len (NEG_INF = -1e30 where
+// kv_len = 0, with o = 0). Counted as its own launch by the wrapper.
+extern "C" int decode_attention_lse(const void* q, const void* k, const void* v,
+                                    const void* kv_len, int klen_s, void* ws, void* counters,
+                                    void* o, void* lse, int B, int S, int Hq, int Hkv, int D,
+                                    int nsplit, int blk_s, float scale, int dtype, void* stream) {
+  return run<true>(q, k, v, kv_len, klen_s, ws, counters, o, lse, B, S, Hq, Hkv, D, nsplit,
+                   blk_s, scale, dtype, stream);
 }

@@ -6,7 +6,9 @@ itself), and its plain version ``ref.decode_attention`` beside it
 
 The source note in the ``.cu`` file says what bounds the kernel and what its
 design does about it. One call is one launch, counted as
-``"decode_attention"``.
+``"decode_attention"``; the variant that also returns the log-sum-exp (the
+same kernel with its template flag on, for a cache split over the
+sequence) as ``"decode_attention_lse"``.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from repro_torch.kernels.flash_attention import (DTYPES, HEAD_DIMS, _offset_arg,
                                                  raw_stream)
 from repro_torch.kernels.ref import decode_attention as plain  # noqa: F401  (the plain version)
 
-launches = collections.Counter()  # "decode_attention"
+launches = collections.Counter()  # "decode_attention", "decode_attention_lse"
 BLK_S = 256  # cache rows per split
 
 # (device index, stream handle) -> (fp32 workspace, int32 counters): the
@@ -39,6 +41,9 @@ def _lib() -> ctypes.CDLL:
     lib.decode_attention.argtypes = [P, P, P, P, I, P, P, P, I, I, I, I, I, I, I,
                                      ctypes.c_float, I, P]
     lib.decode_attention.restype = I
+    lib.decode_attention_lse.argtypes = [P, P, P, P, I, P, P, P, P, I, I, I, I, I, I, I,
+                                         ctypes.c_float, I, P]
+    lib.decode_attention_lse.restype = I
     return lib
 
 
@@ -73,7 +78,7 @@ def _workspace(device: torch.device, stream: int, n_ws: int, n_counters: int):
 
 
 def decode_attention(q, k, v, kv_len, *, blk_s: int = BLK_S,
-                     scale: Optional[float] = None):
+                     scale: Optional[float] = None, lse: bool = False):
     """q: (B,Hq,D) one token; k, v: (B,S,Hkv,D) cache; kv_len: int, None or (B,).
 
     One launch on the current stream: the splits of ``blk_s`` cache rows
@@ -81,7 +86,11 @@ def decode_attention(q, k, v, kv_len, *, blk_s: int = BLK_S,
     reaches the kernel as a scalar argument, with no tensor to fill; a
     tensor as a (B,) int32. Splits at or past kv_len are never read, and
     kv_len = 0 gives o = 0. Only o is allocated per call: the workspace and
-    counters are this stream's (``_workspace``)."""
+    counters are this stream's (``_workspace``).
+
+    ``lse=True``: the variant, (o, lse) with o in fp32 and lse (B,Hq) fp32
+    in natural-log units (NEG_INF at kv_len = 0), as
+    ``ref.decode_attention(..., lse=True)``."""
     B, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     check_cuda("decode_attention", q, k, v)
@@ -97,12 +106,19 @@ def decode_attention(q, k, v, kv_len, *, blk_s: int = BLK_S,
     stream = raw_stream(q)
     # Counters: one per (batch, head block) of the grid, at most B * Hq.
     ws, counters = _workspace(dev, stream, B * Hq * nsplit * (D + 2), B * Hq)
-    o = torch.empty((B, Hq, D), dtype=q.dtype, device=dev)
-    rc = _lib().decode_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if kl is None else kl.data_ptr(), kl_s,
-        ws.data_ptr(), counters.data_ptr(), o.data_ptr(), B, S, Hq, Hkv, D, nsplit, blk_s, scale,
-        DTYPES[q.dtype], stream)
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), None if kl is None else kl.data_ptr(), kl_s,
+            ws.data_ptr(), counters.data_ptr())
+    tail = (B, S, Hq, Hkv, D, nsplit, blk_s, scale, DTYPES[q.dtype], stream)
+    if lse:
+        o = torch.empty((B, Hq, D), dtype=torch.float32, device=dev)
+        out_lse = torch.empty((B, Hq), dtype=torch.float32, device=dev)
+        rc = _lib().decode_attention_lse(*head, o.data_ptr(), out_lse.data_ptr(), *tail)
+        name = "decode_attention_lse"
+    else:
+        o = torch.empty((B, Hq, D), dtype=q.dtype, device=dev)
+        rc = _lib().decode_attention(*head, o.data_ptr(), *tail)
+        name = "decode_attention"
     if rc != 0:
-        raise RuntimeError(f"decode_attention launch failed (error {rc})")
-    launches["decode_attention"] += 1
-    return o
+        raise RuntimeError(f"{name} launch failed (error {rc})")
+    launches[name] += 1
+    return (o, out_lse) if lse else o

@@ -31,7 +31,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rms
 
 KERNELS = ("flash_attention", "flash_attention_dq", "flash_attention_dkv",
-           "decode_attention", "rmsnorm")
+           "decode_attention", "decode_attention_lse", "rmsnorm")
 _COUNTERS = (_fa.launches, _dec.launches, _rms.launches)
 
 
@@ -66,11 +66,13 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset=None, kv_len=None)
     return o
 
 
-def decode_attention(q, k, v, kv_len):
-    """q: (B,Hq,D) single token; k, v: (B,S,Hkv,D); kv_len: int or (B,)."""
+def decode_attention(q, k, v, kv_len, *, lse: bool = False):
+    """q: (B,Hq,D) single token; k, v: (B,S,Hkv,D); kv_len: int or (B,).
+    ``lse=True``: (o fp32, lse (B,Hq) fp32), the partial that
+    ``ref.merge_partials`` merges (semantics of ``ref.decode_attention``)."""
     if q.device.type == "cpu":
-        return ref.decode_attention(q, k, v, kv_len)
-    return _dec.decode_attention(q, k, v, kv_len)
+        return ref.decode_attention(q, k, v, kv_len, lse=lse)
+    return _dec.decode_attention(q, k, v, kv_len, lse=lse)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

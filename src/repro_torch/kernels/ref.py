@@ -120,8 +120,16 @@ def attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     return dq, dk, dv
 
 
-def decode_attention(q, k, v, kv_len, *, scale: Optional[float] = None):
-    """Single-token decode: q (B, Hq, D); k, v (B, S, Hkv, D); kv_len (B,)."""
+def decode_attention(q, k, v, kv_len, *, scale: Optional[float] = None, lse: bool = False):
+    """Single-token decode: q (B, Hq, D); k, v (B, S, Hkv, D); kv_len (B,).
+
+    ``lse=False``: o in q's type. A row with kv_len 0 takes a softmax over
+    all-NEG_INF scores, which averages V (ROADMAP C: K4 returns 0 there).
+
+    ``lse=True``: (o, lse), o in fp32 (B, Hq, D) and lse = log sum_k
+    exp(scale q.k) over the keys below kv_len, fp32 (B, Hq), natural log: a
+    partial attention over a slice of the cache, as ``merge_partials``
+    merges. A row with kv_len 0 gives o = 0 and lse = NEG_INF."""
     B, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
@@ -129,10 +137,30 @@ def decode_attention(q, k, v, kv_len, *, scale: Optional[float] = None):
     qf = (q.float() * scale).reshape(B, Hkv, group, D)
     s = torch.einsum("bhgd,bkhd->bhgk", qf, k.float())
     valid = torch.arange(S, device=q.device)[None, :] < _per_batch(kv_len, B, q.device)[:, None]
-    s = torch.where(valid[:, None, None], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
-    return o.reshape(B, Hq, D).to(q.dtype)
+    valid = valid[:, None, None]
+    s = torch.where(valid, s, NEG_INF)
+    if not lse:
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
+        return o.reshape(B, Hq, D).to(q.dtype)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), 0.0)
+    l = p.sum(-1)                                                            # (B, Hkv, group)
+    o = torch.einsum("bhgk,bkhd->bhgd", p, v.float()) / torch.clamp(l, min=1e-30)[..., None]
+    lse_ = torch.where(l > 0, m[..., 0] + torch.log(torch.clamp(l, min=1e-30)), NEG_INF)
+    return o.reshape(B, Hq, D), lse_.reshape(B, Hq)
+
+
+def merge_partials(o, lse, out_dtype):
+    """Log-sum-exp merge of n partial attentions over disjoint slices of one
+    cache: o (n, B, Hq, D) fp32, each normalised over its slice, and lse
+    (n, B, Hq) -> (B, Hq, D) in ``out_dtype``. ``combine_splits``' rule over
+    whole partials: weights exp(lse_i - max lse) in fp32, cast once. A
+    partial with no key (lse = NEG_INF) weighs 0; where no partial has one,
+    o = 0."""
+    w = torch.exp(lse - torch.amax(lse, dim=0, keepdim=True))               # (n, B, Hq)
+    o = torch.einsum("nbhd,nbh->bhd", o, w) / torch.clamp(w.sum(0), min=1e-30)[..., None]
+    return o.to(out_dtype)
 
 
 def combine_splits(acc, m, l, kv_len, blk_s: int, out_dtype):

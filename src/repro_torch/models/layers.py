@@ -31,6 +31,15 @@ GQA groups are padded with zero heads, so K1 and K4 keep their mapping of
 query head i to KV head i // (Hq / Hkv) and launch once a layer; where wq's
 slice is not whole heads, its columns are exchanged to heads and the heads'
 outputs back to wo's rows.
+
+A cache split over the sequence (``seq``, a ``collective.SeqSplit`` over
+"data"; None otherwise): each rank's attention cache holds the positions
+[r L, (r + 1) L) of its slice r (L = S / n). A prefill (cache position 0)
+computes K and V of the whole prompt on every rank, attends over them
+through K1 and writes the rank's positions into its cache; a decode step
+writes the new K and V on the rank that owns the position, runs K4's
+log-sum-exp variant over each rank's slice and merges the ranks' partials
+(``collective.gather_partials``, ``kernels/ref.py::merge_partials``).
 """
 from __future__ import annotations
 
@@ -43,9 +52,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.collective import (ModelParallel, Ranges, copy_to_model, exchange_model,
-                                         reduce_from_model, tiles)
+from repro_torch.core.collective import (ModelParallel, Ranges, SeqSplit, copy_to_model,
+                                         exchange_model, gather_partials, reduce_from_model,
+                                         tiles)
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import merge_partials
 
 Params = Dict[str, Any]
 
@@ -190,16 +201,18 @@ def head_split(cfg: ArchConfig, n_model: int, index: int) -> HeadSplit:
     return HeadSplit((qa, qb), (lo, hi), pad, (cfg.q_dim // n_model) % dh != 0, wk, cache)
 
 
-def attn_cache_shape(cfg: ArchConfig, batch: int, max_len: int, n_model: int = 1):
+def attn_cache_shape(cfg: ArchConfig, batch: int, max_len: int, n_model: int = 1,
+                     n_seq: int = 1):
     """(B, S, Hkv, Dh) of a rank's attention cache, as ``cache_spec``
     places it: the KV heads split over "model" where they divide it, else
-    their head dim, else the cache is whole."""
+    their head dim, else the cache is whole; S split over ``n_seq`` ranks
+    of "data" (a sequence split)."""
     h, d = cfg.n_kv_heads, cfg.head_dim
     if n_model > 1 and h % n_model == 0:
         h //= n_model
     elif n_model > 1 and d % n_model == 0:
         d //= n_model
-    return (batch, max_len, h, d)
+    return (batch, max_len // n_seq, h, d)
 
 
 def _head_cols(heads: Tuple[int, int], dh: int, offset: int = 0) -> Ranges:
@@ -259,11 +272,14 @@ def attention(
     cache: Optional[Params] = None,
     cache_pos: Optional[int] = None,
     tp: Optional[ModelParallel] = None,
+    seq: Optional[SeqSplit] = None,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Full attention: the uncached forward when cache is None; a cached
     step of T tokens written at ``cache_pos`` otherwise (prefill: T = the
     prompt, cache_pos 0; decode: T = 1). Under ``tp`` on this rank's heads
-    (``head_split``), the output summed over "model".
+    (``head_split``), the output summed over "model". Under ``seq`` the
+    cache holds this rank's slice of the positions (module docstring); a
+    step of several tokens at cache_pos > 0 raises there.
 
     ``cache_pos`` is one int for the whole batch, as ``Model.decode_step``
     uses it. K and V are written into the cache IN PLACE by slice assignment,
@@ -290,6 +306,9 @@ def attention(
     if cache is None:
         out = ops.flash_attention(q, k[:, :, lo:hi], v[:, :, lo:hi], causal=True)
         new_cache = None
+    elif seq is not None:
+        out = _seq_split_step(cfg, q, k, v, cache, int(cache_pos), tp, sp, seq, lo, hi)
+        new_cache = cache
     else:
         idx = int(cache_pos)
         k_cache, v_cache = cache["k"], cache["v"]
@@ -298,9 +317,7 @@ def attention(
             k_cache[:, idx:idx + T] = k[..., tp.index * w:(tp.index + 1) * w]
             v_cache[:, idx:idx + T] = v[..., tp.index * w:(tp.index + 1) * w]
             if idx:  # the earlier keys and values: this rank's KV heads, brought together
-                kv = torch.cat([k_cache[:, :idx + T], v_cache[:, :idx + T]], 2)
-                kv = exchange_model(tp, kv.reshape(B, idx + T, -1), *_kv_layout(cfg, tp, True))
-                k_cache, v_cache = kv.reshape(B, idx + T, 2 * (hi - lo), -1).chunk(2, 2)
+                k_cache, v_cache = _heads_of_dims(cfg, tp, k_cache, v_cache, idx + T, hi - lo)
             else:
                 k_cache, v_cache = k[:, :, lo:hi], v[:, :, lo:hi]
         else:
@@ -332,9 +349,57 @@ def attention(
     return y, new_cache
 
 
+def _heads_of_dims(cfg: ArchConfig, tp: ModelParallel, k_cache, v_cache, n: int, heads: int):
+    """The first ``n`` positions of this rank's KV heads, brought together
+    from the ranks' head-dim slices of every head (one exchange)."""
+    B = k_cache.shape[0]
+    kv = torch.cat([k_cache[:, :n], v_cache[:, :n]], 2)
+    kv = exchange_model(tp, kv.reshape(B, n, -1), *_kv_layout(cfg, tp, True))
+    return kv.reshape(B, n, 2 * heads, -1).chunk(2, 2)
+
+
+def _seq_split_step(cfg: ArchConfig, q, k, v, cache: Params, idx: int,
+                    tp: Optional[ModelParallel], sp: Optional[HeadSplit], seq: SeqSplit,
+                    lo: int, hi: int) -> torch.Tensor:
+    """Attention of a cached step over a cache split over the sequence
+    (``attention``'s ``seq``): this rank's positions of the new K and V
+    written into its slice, then the output (B, T, Hq_local, D)."""
+    B, T = q.shape[:2]
+    L, start = seq.length, seq.index * seq.length
+    if idx and T > 1:
+        raise NotImplementedError(
+            "a cached step of several tokens over a cache split over the sequence is not "
+            "ported: decode one token at a time")
+    dims = sp is not None and sp.cache == "dims"
+    w = cfg.head_dim // tp.size if dims else cfg.head_dim
+
+    def mine(x):  # what the cache holds of K or V: the head-dim slice, or the heads
+        return x[..., tp.index * w:(tp.index + 1) * w] if dims else x
+
+    a, b = max(idx, start), min(idx + T, start + L)  # this rank's positions of the step
+    if a < b:
+        cache["k"][:, a - start:b - start] = mine(k[:, a - idx:b - idx])
+        cache["v"][:, a - start:b - start] = mine(v[:, a - idx:b - idx])
+    if idx == 0:  # prefill: the whole prompt's keys, on every rank
+        return ops.flash_attention(q, k[:, :, lo:hi].contiguous(), v[:, :, lo:hi].contiguous(),
+                                   causal=True)
+    n = min(max(idx + 1 - start, 0), L)  # this rank's keys at or before the position
+    k_cache, v_cache = cache["k"], cache["v"]
+    if dims:  # at least one row, so that every exchange has a shape
+        k_cache, v_cache = _heads_of_dims(cfg, tp, k_cache, v_cache, max(n, 1), hi - lo)
+    elif (lo, hi) != (0, k_cache.shape[2]):
+        k_cache, v_cache = k_cache[:, :, lo:hi], v_cache[:, :, lo:hi]
+    o, lse = ops.decode_attention(q[:, 0], k_cache.contiguous(), v_cache.contiguous(), n,
+                                  lse=True)
+    parts = gather_partials(seq, torch.cat([o, lse[..., None]], -1))
+    return merge_partials(parts[..., :-1], parts[..., -1], q.dtype)[:, None]
+
+
 def init_attn_cache(cfg: ArchConfig, batch: int, max_len: int, device,
-                    dtype=torch.bfloat16, tp: Optional[ModelParallel] = None) -> Params:
-    shape = attn_cache_shape(cfg, batch, max_len, 1 if tp is None else tp.size)
+                    dtype=torch.bfloat16, tp: Optional[ModelParallel] = None,
+                    seq: Optional[SeqSplit] = None) -> Params:
+    shape = attn_cache_shape(cfg, batch, max_len, 1 if tp is None else tp.size,
+                             1 if seq is None else seq.size)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 

@@ -33,7 +33,10 @@ rank's slices of their leaves (``layers.py``, ``moe.py``, ``ssm.py``: heads,
 or a head-dim split of KV heads that do not divide the axis; hidden dims;
 experts; the recurrent mixers' channels, d_k rows or heads). Their caches
 hold this rank's part of the state. ``check_tp`` raises only for a split
-that no arch of the registry makes.
+that no arch of the registry makes. ``seq`` (a ``collective.SeqSplit``,
+None unless a served batch does not split over "data") goes to every
+attention block, whose cache then holds a slice of the positions; the
+recurrent states stay whole.
 
 The cache of an attention block is its K/V, written in place; that of a
 recurrent block is its state (mamba: conv in the model type, h fp32; mlstm:
@@ -50,7 +53,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.collective import ModelParallel
+from repro_torch.core.collective import ModelParallel, SeqSplit
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
@@ -106,6 +109,7 @@ def apply_block(
     cache: Optional[Params],
     cache_pos: Optional[int],
     tp: Optional[ModelParallel] = None,
+    seq: Optional[SeqSplit] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Optional[Params]]:
     """(x, aux, cache): aux holds a MoE block's aux losses (uncached calls
     only) and is empty otherwise. An attention block's cache is updated in
@@ -115,7 +119,7 @@ def apply_block(
     h = L.apply_norm(cfg, p["norm1"], x)
     if kind == "attn":
         y, new_cache = L.attention(cfg, p["mixer"], h, positions=positions, cache=cache,
-                                   cache_pos=cache_pos, tp=tp)
+                                   cache_pos=cache_pos, tp=tp, seq=seq)
     elif kind == "mamba":
         y, new_cache = S.apply_mamba(cfg, p["mixer"], h, state=cache, tp=tp)
     elif kind == "mlstm":
@@ -164,9 +168,10 @@ def check_tp(cfg: ArchConfig, n_model: int) -> None:
 
 
 def init_block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int, device,
-                     dtype, tp: Optional[ModelParallel] = None) -> Params:
+                     dtype, tp: Optional[ModelParallel] = None,
+                     seq: Optional[SeqSplit] = None) -> Params:
     if kind == "attn":
-        return L.init_attn_cache(cfg, batch, max_len, device, dtype, tp)
+        return L.init_attn_cache(cfg, batch, max_len, device, dtype, tp, seq)
     if kind == "mamba":
         return S.init_mamba_state(cfg, batch, device, dtype, tp)
     if kind == "mlstm":
@@ -208,12 +213,13 @@ def init_stack(cfg: ArchConfig, gen: torch.Generator, dtype) -> Params:
 
 
 def init_stack_cache(cfg: ArchConfig, batch: int, max_len: int, device,
-                     dtype=torch.bfloat16, tp: Optional[ModelParallel] = None) -> Params:
+                     dtype=torch.bfloat16, tp: Optional[ModelParallel] = None,
+                     seq: Optional[SeqSplit] = None) -> Params:
     sig = period_signature(cfg)
     G = n_groups(cfg)
     out = {}
     for j, (kind, is_moe) in enumerate(sig):
-        one = init_block_cache(cfg, kind, batch, max_len, device, dtype, tp)
+        one = init_block_cache(cfg, kind, batch, max_len, device, dtype, tp, seq)
         out[f"b{j}"] = _map(lambda a: a[None].repeat(G, *([1] * a.ndim)), one)
     return out
 
@@ -240,6 +246,7 @@ def apply_stack(
     train: bool = False,
     gather_fn=None,
     tp: Optional[ModelParallel] = None,
+    seq: Optional[SeqSplit] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Optional[Params]]:
     """Runs every layer group in order: (x, aux, caches). aux sums the MoE
     blocks' aux losses over the layers (empty for a dense stack or a cached
@@ -255,7 +262,9 @@ def apply_stack(
     gather's backward reduce-scatters the group's gradients.
 
     tp (optional): tensor parallelism over "model"; the group's leaves are
-    this rank's "model" slices (after ``gather_fn``'s FSDP gather)."""
+    this rank's "model" slices (after ``gather_fn``'s FSDP gather).
+
+    seq (optional): the attention caches' sequence split (cached calls)."""
     sig = period_signature(cfg)
     unbound = _map(lambda a: a.unbind(0), stack_params)
 
@@ -266,7 +275,7 @@ def apply_stack(
         for j, (kind, is_moe) in enumerate(sig):
             gc = None if caches is None else _map(lambda a: a[g], caches[f"b{j}"])
             x, a, new = apply_block(cfg, kind, is_moe, gp[f"b{j}"], x, positions=positions,
-                                    cache=gc, cache_pos=cache_pos, tp=tp)
+                                    cache=gc, cache_pos=cache_pos, tp=tp, seq=seq)
             if gc is not None and kind != "attn":  # a recurrent block's new state
                 for name, dst in gc.items():
                     dst.copy_(new[name])

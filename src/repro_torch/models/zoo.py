@@ -35,8 +35,9 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.collective import (ModelParallel, copy_to_model, gather_from_model,
-                                         reduce_from_model, vocab_parallel_nll)
+from repro_torch.core.collective import (ModelParallel, SeqSplit, copy_to_model,
+                                         gather_from_model, reduce_from_model,
+                                         vocab_parallel_nll)
 from repro_torch.device import resolve
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -193,16 +194,20 @@ class Model(nn.Module):
     # -------------------------------------------------------------- serving
 
     def init_cache(self, batch_size: int, max_len: int,
-                   tp: Optional[ModelParallel] = None) -> Params:
-        """Under ``tp`` the attention caches hold this rank's KV heads."""
+                   tp: Optional[ModelParallel] = None,
+                   seq: Optional[SeqSplit] = None) -> Params:
+        """Under ``tp`` the attention caches hold this rank's KV heads,
+        under ``seq`` this rank's slice of their positions. ``pos`` is the
+        global position."""
         return {
             "layers": T.init_stack_cache(self.cfg, batch_size, max_len, self.device,
-                                         self.dtype, tp),
+                                         self.dtype, tp, seq),
             "pos": 0,
         }
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
-                max_len: int, tp: Optional[ModelParallel] = None) -> Tuple[torch.Tensor, Params]:
+                max_len: int, tp: Optional[ModelParallel] = None,
+                seq: Optional[SeqSplit] = None) -> Tuple[torch.Tensor, Params]:
         """Parallel prompt pass that also fills the decode cache: attention
         layers write the prompt's K/V into cache slots [0, T) and attend
         causally over them (one cached multi-token step at cache_pos 0);
@@ -212,19 +217,20 @@ class Model(nn.Module):
         x = batch.get("tokens", batch.get("embeddings"))
         B, Tn = x.shape[:2]
         h = self._embed(params, batch, tp=tp)
-        cache = self.init_cache(B, max_len, tp)
+        cache = self.init_cache(B, max_len, tp, seq)
         h, _, layers = T.apply_stack(self.cfg, params["stack"], h,
-                                     caches=cache["layers"], cache_pos=0, tp=tp)
+                                     caches=cache["layers"], cache_pos=0, tp=tp, seq=seq)
         h = L.apply_norm(self.cfg, params["final_norm"], h)
         return self._full_logits(params, h, tp), {"layers": layers, "pos": Tn}
 
     def decode_step(self, params: Params, cache: Params, batch: Dict[str, torch.Tensor],
-                    tp: Optional[ModelParallel] = None) -> Tuple[torch.Tensor, Params]:
+                    tp: Optional[ModelParallel] = None,
+                    seq: Optional[SeqSplit] = None) -> Tuple[torch.Tensor, Params]:
         """One token for every sequence in the batch."""
         pos = cache["pos"]
         h = self._embed(params, batch, pos_offset=pos, tp=tp)
         h, _, layers = T.apply_stack(self.cfg, params["stack"], h,
-                                     caches=cache["layers"], cache_pos=pos, tp=tp)
+                                     caches=cache["layers"], cache_pos=pos, tp=tp, seq=seq)
         h = L.apply_norm(self.cfg, params["final_norm"], h)
         return self._full_logits(params, h, tp), {"layers": layers, "pos": pos + h.shape[1]}
 

@@ -20,15 +20,18 @@ and ``mesh.axis_names``, so any object with those two serves as the mesh
 (``launch.mesh.AbstractMesh`` for shapes no machine here has).
 ``shard_leaf`` / ``unshard_leaf`` take the place of JAX's ``NamedSharding``:
 this rank's slice along every sharded dim, and the all-gathers back.
-``model_parallel(mesh)`` is the TP context the layers read.
+``model_parallel(mesh)`` is the TP context the layers read; ``serve_plan``
+says what a serving rank holds of a batch and of its cache.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import Any, Optional, Tuple
 
 import torch
 
-from repro_torch.core.collective import ModelParallel, all_gather_dim
+from repro_torch.core.collective import ModelParallel, SeqSplit, all_gather_dim
 
 Path = str
 
@@ -310,3 +313,47 @@ def model_parallel(mesh) -> Optional[ModelParallel]:
     if n == 1:
         return None
     return ModelParallel(mesh.group("model"), mesh.axis_index("model"), n)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServePlan:
+    """What a serving rank holds of a batch of B rows and of an attention
+    cache of S positions, by ``batch_spec`` / ``cache_spec``:
+
+      row_axes  the axes the rows split over: ("pod", "data") where B
+                divides both, ("data",) where it divides "data" alone (the
+                rows replicated over "pod"), () where it divides neither
+                (every rank runs every row);
+      seq_axis  "data" where the rows do not split and S divides "data":
+                every attention cache holds a slice of the positions. The
+                recurrent states stay whole in B and S.
+      rows      on a mesh of ranks, (this rank's index, the split's size,
+                its group) of the row split, or None;
+      seq       on a mesh of ranks, the ``SeqSplit`` of the sequence split,
+                or None."""
+    row_axes: Tuple[str, ...]
+    seq_axis: Optional[str]
+    rows: Optional[Tuple[int, int, Any]] = None
+    seq: Optional[SeqSplit] = None
+
+
+def serve_plan(B: int, S: int, mesh) -> ServePlan:
+    """The ``ServePlan`` of B rows over a cache of S positions on ``mesh``:
+    the axes from ``batch_spec`` and ``cache_spec``'s rule (an
+    ``AbstractMesh`` gives only these); on a mesh of ranks also this rank's
+    row split and sequence split."""
+    b = batch_spec("tokens", (B,), mesh)[0]
+    row_axes = () if b is None else ((b,) if isinstance(b, str) else tuple(b))
+    seq_axis = None if row_axes else _maybe(S, mesh, "data")
+    if not hasattr(mesh, "group"):
+        return ServePlan(row_axes, seq_axis)
+    rows = seq = None
+    if row_axes == ("data",):
+        rows = (mesh.axis_index("data"), mesh.shape["data"], mesh.group("data"))
+    elif row_axes:  # every batch axis of the mesh, pod-major
+        rows = (mesh.batch_index(), math.prod(mesh.shape[a] for a in row_axes),
+                mesh.batch_group())
+    if seq_axis:
+        n = mesh.shape["data"]
+        seq = SeqSplit(mesh.group("data"), mesh.axis_index("data"), n, S // n)
+    return ServePlan(row_axes, seq_axis, rows, seq)

@@ -4,7 +4,7 @@ operators, the vocab-parallel embedding and cross entropy, and serving on
 ``Model.prefill`` / ``decode_step`` (reduced qwen3-1.7b, reduced
 granite-moe-1b-a400m with both dispatch modes, and an MQA variant whose wk
 stays whole and whose learned position table splits over d_model); then
-what still raises, and the sharding rules of the full-width leaves this
+what once raised, and the sharding rules of the full-width leaves this
 slice splits.
 
 ``repro``'s own model-axis step does not run on this tree's jax (ROADMAP
@@ -289,7 +289,7 @@ def test_region_operators_match_one_rank(runs, remat):
         calls = {k: v[0] for k, v in res["counts"].items()}
         assert calls == {"copy_to_model": 1, "reduce_from_model": 1 + (remat == "dots"),
                          "gather_from_model": 0, "vocab_parallel_nll": 0,
-                         "exchange_model": 0}, calls
+                         "exchange_model": 0, "gather_partials": 0}, calls
         assert res["counts"]["reduce_from_model"][1] == calls["reduce_from_model"] * 3 * 5 * 8 * 4
 
 
@@ -398,13 +398,14 @@ def test_tp_local_shapes_and_collectives(runs):
         for phase in ("prefill", "decode"):
             calls = {k: v[0] for k, v in r0[f"{case}/{phase}_counts"].items()}
             assert calls == {"copy_to_model": 0, "reduce_from_model": 5, "gather_from_model": 1,
-                             "vocab_parallel_nll": 0, "exchange_model": 0}, (case, phase, calls)
+                             "vocab_parallel_nll": 0, "exchange_model": 0,
+                             "gather_partials": 0}, (case, phase, calls)
     # The prefill's sums move (B, T, d) fp32 partials, a decode step's (B, 1, d).
     assert r0["qwen/prefill_counts"]["reduce_from_model"][1] == 5 * 2 * PROMPT * 64 * 4
     assert r0["qwen/decode_counts"]["reduce_from_model"][1] == 5 * 2 * 1 * 64 * 4
 
 
-# ------------------------------------------- the former refusals, and one
+# ------------------------------------------------------ the former refusals
 
 
 def _ranks_main(rank, name, world, init_file, out_dir):
@@ -511,32 +512,6 @@ def test_recurrent_blocks_raise_under_tp(tmp_path):
     for out in _on_ranks("_mamba_rank", 2, tmp_path):
         assert out["h"] == (1, 2, 64, 4)
         assert out["err"] <= 2e-4 and out["block_err"] <= 2e-5, out
-
-
-def _ragged_rank(rank):
-    from repro_torch.configs import registry
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import zoo
-    from repro_torch.runtime.serve import build_serve_fns
-
-    cfg = registry.get("qwen3-1.7b", reduced=True)
-    model = zoo.build(cfg, dtype=torch.float32, device="cpu")
-    params = model.init(torch.Generator().manual_seed(0))
-    prefill_fn, _ = build_serve_fns(model, MAX_LEN, "cpu", make_mesh((2, 1), ("data", "model"),
-                                                                     "cpu"))
-    try:
-        prefill_fn(params, {"tokens": torch.zeros(3, PROMPT, dtype=torch.long)})
-    except NotImplementedError as e:
-        return str(e)
-    return None
-
-
-def test_serve_refuses_a_batch_that_does_not_split_over_data(tmp_path):
-    """What is still not ported: a batch of 3 on 2 data-parallel ranks, for
-    which cache_spec splits the cache over the sequence instead, raises on
-    every rank before any collective."""
-    for msg in _on_ranks("_ragged_rank", 2, tmp_path):
-        assert msg is not None and "split over the sequence" in msg, msg
 
 
 FULL_MESHES = ((1, 4), (16, 16))

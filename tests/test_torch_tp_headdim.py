@@ -195,7 +195,7 @@ def test_head_dim_split_cache_and_collectives(runs, case):
             per_layer = 1 + (phase == "decode") + 2 * q_moves
             want = {"copy_to_model": 0, "reduce_from_model": 1 + 2 * cfg.n_layers,
                     "gather_from_model": 1, "vocab_parallel_nll": 0,
-                    "exchange_model": per_layer * cfg.n_layers}
+                    "exchange_model": per_layer * cfg.n_layers, "gather_partials": 0}
             calls = {k: v[0] for k, v in out[f"{case}/{phase}_counts"].items()}
             assert calls == want, (case, phase, calls)
 

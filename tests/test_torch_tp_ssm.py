@@ -316,7 +316,8 @@ def _mixer_calls(kind, world, backward):
     reduce = {"mamba": 2, "mlstm": 3, "slstm": 1}[kind]
     copy = {"mamba": 2, "mlstm": 4, "slstm": 1}[kind] if backward else 0
     return {"copy_to_model": copy, "reduce_from_model": reduce, "gather_from_model": 0,
-            "vocab_parallel_nll": 0, "exchange_model": exchange * (1 + backward)}
+            "vocab_parallel_nll": 0, "exchange_model": exchange * (1 + backward),
+            "gather_partials": 0}
 
 
 @pytest.mark.parametrize("world", WORLDS)
@@ -352,7 +353,7 @@ def _serve_calls(cfg, world, decode):
     the KV heads split along their head dim the K / V exchange (and in a
     decode step the cache's)."""
     calls = {"copy_to_model": 0, "reduce_from_model": 1, "gather_from_model": 1,
-             "vocab_parallel_nll": 0, "exchange_model": 0}
+             "vocab_parallel_nll": 0, "exchange_model": 0, "gather_partials": 0}
     for kind in cfg.block_types():
         if kind == "attn":
             calls["reduce_from_model"] += 1

@@ -51,10 +51,10 @@ TOL = dict(rtol=2e-4, atol=2e-4)
 CALLS = {
     "xlstm-1.3b": {"copy_to_model": 7 * 4 + 1 + 1, "reduce_from_model": 23 + 21,
                    "gather_from_model": 0, "vocab_parallel_nll": 2,
-                   "exchange_model": 3 * (7 + 2)},
+                   "exchange_model": 3 * (7 + 2), "gather_partials": 0},
     "jamba-v0.1-52b": {"copy_to_model": 7 * 2 + 1 + 4 + 4 + 1, "reduce_from_model": 24 + 23,
                        "gather_from_model": 0, "vocab_parallel_nll": 2,
-                       "exchange_model": 3 * 7},
+                       "exchange_model": 3 * 7, "gather_partials": 0},
 }
 
 

@@ -350,7 +350,8 @@ def test_tp_step_collective_counts(runs, case):
     L = 2
     moe = case.startswith("granite")
     want = {"copy_to_model": 2 * L + 1, "reduce_from_model": 1 + 2 * L + L * (1 + moe),
-            "gather_from_model": 0, "vocab_parallel_nll": 2, "exchange_model": 0}
+            "gather_from_model": 0, "vocab_parallel_nll": 2, "exchange_model": 0,
+            "gather_partials": 0}
     for out in ranks[_world(case)]:
         for i in range(STEPS):
             calls = {k: v[0] for k, v in out[f"{case}/counts/{i}"].items()}

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Phase 22 of ``chip_smoke.py`` alone: tensor parallelism over "model" on one
-card, four gloo ranks, with what the phase needs first (the kernels, the
-one-rank serve runs of full qwen3-1.7b and granite-moe-1b-a400m, phase
-21's one-rank training baseline). Before and after it, four ranks time
+card, four gloo ranks, with what the phase needs first (the kernels, phase
+21's one-rank training baseline; the phase serves each model on one rank
+itself). Before and after it, four ranks time
 gloo's all_reduce on CUDA tensors: 57 calls of a decode step's (8, 1, 2048)
 fp32 partial, and 4 of a prefill's (8, 1024, 2048), the per-call wall that
 phase 22's serve walls are made of.
@@ -74,10 +74,7 @@ def main() -> int:
         print("tp_phase22: torch.cuda.is_available() is False; this script needs a CUDA card",
               file=sys.stderr)
         return 2
-    from repro_torch.configs import registry
     from repro_torch.kernels import build
-    from repro_torch.models import zoo
-    from repro_torch.runtime.serve import build_serve_fns
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -86,15 +83,6 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip()
     cs.log(f"{card}; torch {torch.__version__}; built in {build.build():.1f} s")
     gloo_latency(card, "before phase 22")
-    dev = torch.device("cuda", 0)
-    for arch in (cs.DENSE, cs.MOE):  # the one-rank runs of phases 5 / 11
-        cfg = registry.get(arch)
-        model = zoo.build(cfg, dtype=torch.bfloat16, device=dev)
-        params = model.init(torch.Generator(device=dev).manual_seed(0))
-        prefill_fn, decode_fn = build_serve_fns(model, cs.MAX_LEN, dev)
-        cs.record_served(cfg, prefill_fn, decode_fn, params, dev)
-        del model, params, prefill_fn, decode_fn
-        torch.cuda.empty_cache()
     baseline = cs.dataplane_baseline()
     t0 = time.perf_counter()
     cs.tensor_parallel(card, 22, baseline)

@@ -1,10 +1,9 @@
 #!/usr/bin/env python3
 """Phase 23 of ``chip_smoke.py`` alone: tensor parallelism over "model" for
 the recurrent mixers and the head-dim split of KV heads on one card, four
-gloo ranks, with what the phase needs first (the kernels, the one-rank
-serve runs of jamba-v0.1-52b's first period and of xlstm-1.3b and their
-one-ulp twins, ``chip_smoke.record_served``). Before
-and after it, four ranks time gloo's all_reduce on CUDA tensors (as
+gloo ranks, with what the phase needs first (the kernels; the phase
+serves each model's cut on one rank itself, with its one-ulp twin,
+``chip_smoke.record_served``). Before and after it, four ranks time gloo's all_reduce on CUDA tensors (as
 ``tools/tp_phase22.py``).
 
     python3 tools/tp_phase23.py
@@ -36,8 +35,6 @@ def main() -> int:
         return 2
     from repro_torch.kernels import build
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models import zoo
-    from repro_torch.runtime.serve import build_serve_fns
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -46,15 +43,6 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip()
     cs.log(f"{card}; torch {torch.__version__}; built in {build.build():.1f} s")
     gloo_latency(card, "before phase 23")
-    dev = torch.device("cuda", 0)
-    for arch in (cs.JAMBA, cs.XLSTM):  # the one-rank runs of phases 16 / 18
-        cfg = cs.tp_serve_cfg(arch)
-        model = zoo.build(cfg, dtype=torch.bfloat16, device=dev)
-        params = model.init(torch.Generator(device=dev).manual_seed(0))
-        prefill_fn, decode_fn = build_serve_fns(model, cs.MAX_LEN, dev)
-        cs.record_served(cfg, prefill_fn, decode_fn, params, dev)
-        del model, params, prefill_fn, decode_fn
-        torch.cuda.empty_cache()
     make_host_mesh("cuda")  # the one-rank group of (c)'s baseline, as the train phases leave it
     t0 = time.perf_counter()
     baseline = cs.train_baseline(*cs.xlstm_period(torch.float32), twins=cs.TP_TWINS)
