@@ -328,13 +328,21 @@ def _count(name: str, t: torch.Tensor) -> None:
     _tp_counts[name][1] += t.numel() * t.element_size()
 
 
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The type sums and recurrences accumulate in: fp32 for bf16 and fp32
+    inputs, fp64 for fp64 ones (a check run in fp64 stays fp64 throughout)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def _sum_fp32(xs, group, name: str):
-    """The sum over ``group`` of each of ``xs`` in ONE fp32 ``all_reduce``,
-    each cast back to its own type."""
+    """The sum over ``group`` of each of ``xs`` in ONE ``all_reduce`` in
+    their accumulation type (``acc_dtype``: fp32 for bf16 and fp32), each
+    cast back to its own type."""
+    acc = acc_dtype(functools.reduce(torch.promote_types, (x.dtype for x in xs)))
     if len(xs) == 1:
-        buf = xs[0].to(torch.float32, copy=True)  # never reduce a caller's tensor in place
+        buf = xs[0].to(acc, copy=True)  # never reduce a caller's tensor in place
     else:
-        buf = torch.cat([x.reshape(-1).float() for x in xs])
+        buf = torch.cat([x.reshape(-1).to(acc) for x in xs])
     _count(name, buf)
     dist.all_reduce(buf, group=group)
     out, off = [], 0
@@ -359,7 +367,7 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, group, x, dtype):
         ctx.dtype = x.dtype
-        buf = x.to(torch.float32, copy=True)
+        buf = x.to(acc_dtype(x.dtype), copy=True)
         _count("reduce_from_model", buf)
         dist.all_reduce(buf, group=group)
         return buf.to(dtype)
@@ -400,7 +408,7 @@ def gather_from_model(tp: ModelParallel, x: torch.Tensor, dim: int) -> torch.Ten
 class _VocabParallelNLL(torch.autograd.Function):
     @staticmethod
     def forward(ctx, group, logits, labels, start):
-        lf = logits.float()
+        lf = logits.to(acc_dtype(logits.dtype))
         top = lf.amax(dim=-1)
         _count("vocab_parallel_nll", top)
         dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
@@ -424,8 +432,8 @@ class _VocabParallelNLL(torch.autograd.Function):
     def backward(ctx, dnll):
         probs, local, inside = ctx.saved_tensors
         grad = probs.clone()
-        grad.scatter_add_(-1, local[..., None], -inside[..., None].float())
-        return None, (grad * dnll[..., None].float()).to(ctx.dtype), None, None
+        grad.scatter_add_(-1, local[..., None], -inside[..., None].to(grad.dtype))
+        return None, (grad * dnll[..., None].to(grad.dtype)).to(ctx.dtype), None, None
 
 
 def vocab_parallel_nll(tp: ModelParallel, logits: torch.Tensor, labels: torch.Tensor
@@ -463,10 +471,10 @@ def _columns(ranges: Ranges) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _exchange_plan(have: Tuple[Ranges, ...], want: Tuple[Ranges, ...], index: int, device: str):
+def _host_plan(have: Tuple[Ranges, ...], want: Tuple[Ranges, ...], index: int):
     """(columns to send, send sizes, receive sizes, where each received
-    column goes, columns received) for rank ``index``. A column held by
-    several ranks is sent by the lowest."""
+    column goes, columns received) for rank ``index``, on the CPU. A column
+    held by several ranks is sent by the lowest."""
     n = max((b for rs in have for _, b in rs), default=0)
     owner = torch.full((n,), -1, dtype=torch.long)
     local = torch.zeros(n, dtype=torch.long)
@@ -485,7 +493,35 @@ def _exchange_plan(have: Tuple[Ranges, ...], want: Tuple[Ranges, ...], index: in
     src = owner[_columns(want[index])]
     order = torch.argsort(src, stable=True)  # received grouped by sender, each in want order
     recv_sizes = [int((src == s).sum()) for s in range(len(have))]
-    return (torch.cat(send).to(device), send_sizes, recv_sizes, order.to(device), len(src))
+    return torch.cat(send), send_sizes, recv_sizes, order, len(src)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_plan(have: Tuple[Ranges, ...], want: Tuple[Ranges, ...], index: int, device: str):
+    send, send_sizes, recv_sizes, order, n = _host_plan(have, want, index)
+    return send.to(device), send_sizes, recv_sizes, order.to(device), n
+
+
+def _exchange_plan(have: Tuple[Ranges, ...], want: Tuple[Ranges, ...], index: int,
+                   device: torch.device):
+    """``_host_plan`` with its index tensors on ``device``. It is plain index
+    arithmetic, made outside every dispatch mode: it reads tensors on the
+    host, and a counted program (``launch/hlo_analysis.py``) does not count
+    it. Under a ``FakeTensorMode`` (the dry-run) the index tensors are fake
+    ones of that mode, of the plan's shapes."""
+    from torch._guards import detect_fake_mode
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    fake = detect_fake_mode()
+    with _disable_current_modes():
+        if fake is None:
+            return _device_plan(have, want, index, str(device))
+        from torch._subclasses.fake_tensor import FakeTensor
+
+        send, send_sizes, recv_sizes, order, n = _host_plan(have, want, index)
+        send, order = (FakeTensor(fake, torch.empty_like(t, device="meta"), device)
+                       for t in (send, order))
+        return send, send_sizes, recv_sizes, order, n
 
 
 class _ExchangeModel(torch.autograd.Function):
@@ -509,8 +545,9 @@ class _ExchangeModel(torch.autograd.Function):
         _count("exchange_model", buf)
         back = buf.new_empty((sum(send_sizes), rows.shape[0]))
         dist.all_to_all_single(back, buf, send_sizes, recv_sizes, group=ctx.group)
-        dx = torch.zeros((ctx.shape[-1], rows.shape[0]), dtype=torch.float32, device=g.device)
-        dx.index_add_(0, send, back.float())
+        acc = acc_dtype(g.dtype)
+        dx = torch.zeros((ctx.shape[-1], rows.shape[0]), dtype=acc, device=g.device)
+        dx.index_add_(0, send, back.to(acc))
         return None, None, dx.t().to(ctx.dtype).reshape(ctx.shape)
 
 
@@ -520,7 +557,7 @@ def exchange_model(tp: ModelParallel, x: torch.Tensor, have: Tuple[Ranges, ...],
     space of which each rank r holds ``have[r]`` in ``x``'s last dim: one
     ``all_to_all_single`` over "model", each wanted column sent by its
     holder. The gradient of a column goes back to its sender and is summed
-    there in fp32, so a column several ranks use gets all their
+    there in fp32 (``acc_dtype``), so a column several ranks use gets all their
     contributions (consumers that differ per rank, as in a split region)."""
-    plan = _exchange_plan(have, want, tp.index, str(x.device))
+    plan = _exchange_plan(have, want, tp.index, x.device)
     return _ExchangeModel.apply(tp.group, plan, x)

@@ -374,9 +374,9 @@ class VectorLinkRNG:
     are reproducible and extendable without re-generating prefixes. The
     block size is part of the stream definition and therefore fixed.
 
-    Backends: "numpy" (default when importable), "jax" (same contract via
-    fold_in-keyed uniforms, useful when the surrounding experiment already
-    lives on an accelerator), "python" (pure-Python fallback, no deps).
+    Backends: "numpy" (default when importable), "torch" (same contract
+    through an explicit ``torch.Generator`` per block; "jax" is refused),
+    "python" (pure-Python fallback, no deps).
     Note this mode is deterministic per seed but intentionally NOT
     draw-for-draw identical to the default shared-``sim.rng`` stream: the
     shared stream interleaves all links into one sequence, which is exactly
@@ -405,9 +405,19 @@ class VectorLinkRNG:
             gen = np.random.default_rng([self.seed, pair_key, block_index])
             return gen.random(self.block).tolist()
         if self.backend == "jax":
-            # repro_torch never imports jax; a torch backend is ROADMAP A15.
             raise ValueError("VectorLinkRNG backend 'jax' is not available in "
-                             "repro_torch; use 'numpy' or 'python'")
+                             "repro_torch; use 'torch', 'numpy' or 'python'")
+        if self.backend == "torch":
+            # The same contract: (seed, pair, block) mixed into one 64-bit
+            # seed of an explicit generator, float64 uniforms in [0, 1).
+            import hashlib
+
+            import torch
+
+            mixed = hashlib.blake2b(f"{self.seed}:{pair_key}:{block_index}".encode(),
+                                    digest_size=8).digest()
+            gen = torch.Generator().manual_seed(int.from_bytes(mixed, "little"))
+            return torch.rand(self.block, generator=gen, dtype=torch.float64).tolist()
         r = random.Random((self.seed, pair_key, block_index))
         return [r.random() for _ in range(self.block)]
 

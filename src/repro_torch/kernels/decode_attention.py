@@ -21,8 +21,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import (DTYPES, HEAD_DIMS, _offset_arg, check_cuda,
-                                                 raw_stream)
+from repro_torch.kernels.flash_attention import (DTYPES, HEAD_DIMS, _check_layout, _offset_arg,
+                                                 _per_row, check_cuda, raw_stream)
 from repro_torch.kernels.ref import decode_attention as plain  # noqa: F401  (the plain version)
 
 launches = collections.Counter()  # "decode_attention", "decode_attention_lse"
@@ -77,6 +77,17 @@ def _workspace(device: torch.device, stream: int, n_ws: int, n_counters: int):
     return ws, counters
 
 
+def _check(q, k, v):
+    _check_layout("decode_attention", q, k, v)
+    B, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    if k.shape != (B, S, Hkv, D) or v.shape != k.shape or Hq % Hkv:
+        raise ValueError(f"decode_attention: bad shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"decode_attention: head dim {D} not in {HEAD_DIMS}")
+
+
 def decode_attention(q, k, v, kv_len, *, blk_s: int = BLK_S,
                      scale: Optional[float] = None, lse: bool = False):
     """q: (B,Hq,D) one token; k, v: (B,S,Hkv,D) cache; kv_len: int, None or (B,).
@@ -90,18 +101,24 @@ def decode_attention(q, k, v, kv_len, *, blk_s: int = BLK_S,
 
     ``lse=True``: the variant, (o, lse) with o in fp32 and lse (B,Hq) fp32
     in natural-log units (NEG_INF at kv_len = 0), as
-    ``ref.decode_attention(..., lse=True)``."""
+    ``ref.decode_attention(..., lse=True)``.
+
+    The launch is the custom op ``repro_torch::decode_attention`` (or
+    ``decode_attention_lse``); on fake tensors it gives the output shapes
+    alone."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    kl, kl_s = _offset_arg(kv_len, q.shape[0], k.shape[1], q.device)
+    if lse:
+        return _lse_op(q, k, v, kl, kl_s, blk_s, scale)
+    return _op(q, k, v, kl, kl_s, blk_s, scale)
+
+
+def _launch(q, k, v, kl, kl_s, blk_s, scale, lse):
     B, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     check_cuda("decode_attention", q, k, v)
-    if k.shape != (B, S, Hkv, D) or v.shape != k.shape or Hq % Hkv:
-        raise ValueError(f"decode_attention: bad shapes q {tuple(q.shape)} "
-                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"decode_attention: head dim {D} not in {HEAD_DIMS}")
-    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    _check(q, k, v)
     dev = q.device
-    kl, kl_s = _offset_arg(kv_len, B, S, dev)
     nsplit = n_splits(S, blk_s)
     stream = raw_stream(q)
     # Counters: one per (batch, head block) of the grid, at most B * Hq.
@@ -122,3 +139,46 @@ def decode_attention(q, k, v, kv_len, *, blk_s: int = BLK_S,
         raise RuntimeError(f"{name} launch failed (error {rc})")
     launches[name] += 1
     return (o, out_lse) if lse else o
+
+
+@torch.library.custom_op("repro_torch::decode_attention", mutates_args=())
+def _op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kl: Optional[torch.Tensor],
+        kl_s: int, blk_s: int, scale: float) -> torch.Tensor:
+    return _launch(q, k, v, kl, kl_s, blk_s, scale, lse=False)
+
+
+@_op.register_fake
+def _(q, k, v, kl, kl_s, blk_s, scale):
+    _check(q, k, v)
+    return torch.empty_like(q)
+
+
+@torch.library.custom_op("repro_torch::decode_attention_lse", mutates_args=())
+def _lse_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kl: Optional[torch.Tensor],
+            kl_s: int, blk_s: int, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _launch(q, k, v, kl, kl_s, blk_s, scale, lse=True)
+
+
+@_lse_op.register_fake
+def _(q, k, v, kl, kl_s, blk_s, scale):
+    _check(q, k, v)
+    B, Hq, D = q.shape
+    return (q.new_empty((B, Hq, D), dtype=torch.float32),
+            q.new_empty((B, Hq), dtype=torch.float32))
+
+
+def work(q, k, kl=None, kl_s: Optional[int] = None, lse: bool = False) -> Tuple[int, int]:
+    """(operations, bytes) of one launch, by this call's kv_len: 4 D per
+    key and query head, q read, K and V read up to kv_len, o written (in
+    q's type; the variant writes o and lse in fp32). The workspace's
+    partials stay in L2 and are not counted."""
+    B, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    kl_s = S if kl_s is None else kl_s
+    keys = sum(min(max(n, 0), S) for n in _per_row(kl, kl_s, B))
+    el = q.element_size()
+    qb = B * Hq * D * el
+    cache = 2 * keys * Hkv * D * el
+    if lse:
+        return 4 * D * Hq * keys, qb + cache + B * Hq * D * 4 + B * Hq * 4
+    return 4 * D * Hq * keys, 2 * qb + cache

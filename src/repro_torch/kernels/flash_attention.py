@@ -18,9 +18,10 @@ import collections
 import ctypes
 import functools
 import math
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.kernels import build
 from repro_torch.kernels import ref  # ref.attention, ref.attention_dq / _dkv: the plain versions
@@ -80,23 +81,55 @@ def check_cuda(name: str, *ts: torch.Tensor) -> None:
             raise ValueError(f"{name}: inputs must be contiguous and 16-byte aligned")
 
 
-def flash_attention_fwd(q, k, v, *, causal: bool = True, q_offset=None,
-                        kv_len=None, scale: Optional[float] = None):
-    """q: (B,Tq,Hq,D); k, v: (B,Tk,Hkv,D) -> (o (B,Tq,Hq,D), lse (B,Hq,Tq) f32).
+def _check_layout(name: str, *ts: torch.Tensor) -> None:
+    """The layout the kernels take, which a fake call checks too: one type
+    of the two, contiguous."""
+    for t in ts:
+        if t.dtype != ts[0].dtype or t.dtype not in DTYPES:
+            raise ValueError(f"{name}: float32 or bfloat16 inputs of one type, got "
+                             f"{[x.dtype for x in ts]}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous and 16-byte aligned")
 
-    ``q_offset`` and ``kv_len`` are None, ints or (B,) tensors, as in
-    ``ref.attention``. Launches one kernel on the current stream."""
+
+def _check_fwd(q, k, v):
+    """The forward kernel's shape and layout rules, which a fake call
+    checks too."""
+    _check_layout("flash_attention", q, k, v)
     B, Tq, Hq, D = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
-    check_cuda("flash_attention", q, k, v)
     if k.shape != (B, Tk, Hkv, D) or v.shape != k.shape or Hq % Hkv:
         raise ValueError(f"flash_attention: bad shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
-    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = True, q_offset=None,
+                        kv_len=None, scale: Optional[float] = None):
+    """q: (B,Tq,Hq,D); k, v: (B,Tk,Hkv,D) -> (o (B,Tq,Hq,D), lse (B,Hq,Tq) f32).
+
+    ``q_offset`` and ``kv_len`` are None, ints or (B,) tensors, as in
+    ``ref.attention``. One call of the custom op ``repro_torch::
+    flash_attention_fwd``: on CUDA tensors one launch on the current
+    stream, on fake ones the output shapes alone."""
+    B, Tk = q.shape[0], k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     qo, qo_s = _offset_arg(q_offset, B, 0, q.device)
     kl, kl_s = _offset_arg(kv_len, B, Tk, q.device)
+    return _fwd_op(q, k, v, qo, kl, qo_s, kl_s, causal, scale)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, qo: Optional[torch.Tensor],
+            kl: Optional[torch.Tensor], qo_s: int, kl_s: int, causal: bool, scale: float
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The launch: the kernel on the current stream (a tensor on any other
+    device is refused by ``check_cuda``)."""
+    B, Tq, Hq, D = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    check_cuda("flash_attention", q, k, v)
+    _check_fwd(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((B, Hq, Tq), dtype=torch.float32, device=q.device)
     rc = _lib().flash_attention_fwd(
@@ -110,10 +143,72 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, q_offset=None,
     return o, lse
 
 
-def _check_bwd(q, k, v, do, lse, delta):
+@_fwd_op.register_fake
+def _(q, k, v, qo, kl, qo_s, kl_s, causal, scale):
+    _check_fwd(q, k, v)
+    B, Tq, Hq, _ = q.shape
+    return torch.empty_like(q), q.new_empty((B, Hq, Tq), dtype=torch.float32)
+
+
+def _per_row(x: Optional[torch.Tensor], s: int, B: int) -> List[int]:
+    """The B values of a kernel's (tensor, scalar) argument: the scalar for
+    every row, or the tensor's values. A fake tensor has none, and counts
+    as ``s``."""
+    if x is None or is_fake(x):
+        return [s] * B
+    return [int(n) for n in x.reshape(-1).expand(B).tolist()]
+
+
+def _pairs(qo: int, Tq: int, kl: int, causal: bool) -> Tuple[int, int]:
+    """(query-key pairs computed, keys read) for one row and head: query t
+    at position qo + t sees keys below min(qo + t + 1, kl) when causal (the
+    kernel skips the tiles past the diagonal and past kv_len), below kl
+    otherwise."""
+    kl = max(kl, 0)
+    if not causal:
+        return Tq * kl, kl
+    m = min(max(kl - qo, 0), Tq)  # queries whose causal bound lies inside kv_len
+    return m * qo + m * (m + 1) // 2 + (Tq - m) * kl, min(kl, qo + Tq)
+
+
+def fwd_work(q, k, qo=None, kl=None, qo_s: int = 0, kl_s: Optional[int] = None,
+             causal: bool = True) -> Tuple[int, int]:
+    """(operations, bytes) of one forward launch, by what this call's
+    lengths make the kernel do: 4 D per (query, key) pair and head, Q read
+    and O written once, K and V read up to the last key a query sees, lse
+    written in fp32. ``chip_smoke.py``'s bound and the dry-run's count
+    (``launch/hlo_analysis.py``) both read it."""
     B, Tq, Hq, D = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
-    check_cuda("flash_attention_bwd", q, k, v, do)
+    kl_s = Tk if kl_s is None else kl_s
+    pairs = keys = 0
+    for o_b, l_b in zip(_per_row(qo, qo_s, B), _per_row(kl, kl_s, B)):
+        p, n = _pairs(o_b, Tq, min(l_b, Tk), causal)
+        pairs, keys = pairs + p, keys + n
+    el = q.element_size()
+    return (4 * D * Hq * pairs,
+            2 * B * Tq * Hq * D * el + 2 * keys * Hkv * D * el + B * Hq * Tq * 4)
+
+
+def bwd_work(q, k, causal: bool = True, dkv: bool = False) -> Tuple[int, int]:
+    """(operations, bytes) of one dQ launch (``dkv=False``: 6 D a pair,
+    the scores, dP and dQ) or one dK/dV launch (8 D: the scores, dP, dV and
+    dK): Q, dO, K, V, lse and delta read once, dQ or dK and dV written."""
+    B, Tq, Hq, D = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    pairs = B * _pairs(0, Tq, Tk, causal)[0]
+    el = q.element_size()
+    qb, kb, stat = B * Tq * Hq * D * el, B * Tk * Hkv * D * el, B * Hq * Tq * 4
+    reads = 2 * qb + 2 * kb + 2 * stat
+    if dkv:
+        return 8 * D * Hq * pairs, reads + 2 * kb
+    return 6 * D * Hq * pairs, reads + qb
+
+
+def _check_bwd(q, k, v, do, lse, delta):
+    _check_layout("flash_attention_bwd", q, k, v, do)
+    B, Tq, Hq, D = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
     if k.shape != (B, Tk, Hkv, D) or v.shape != k.shape or do.shape != q.shape or Hq % Hkv:
         raise ValueError(f"flash_attention_bwd: bad shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)} do {tuple(do.shape)}")
@@ -127,14 +222,32 @@ def _check_bwd(q, k, v, do, lse, delta):
 
 def _bwd_args(q, k, causal, scale):
     B, Tq, Hq, D = q.shape
-    scale = scale if scale is not None else 1.0 / math.sqrt(D)
     return (B, Tq, k.shape[1], Hq, k.shape[2], D, int(causal), scale, DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+            raw_stream(q))
+
+
+def _scale(q, scale: Optional[float]) -> float:
+    return scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
 
 
 def launch_dq(q, k, v, do, lse, delta, *, causal: bool = True,
               scale: Optional[float] = None) -> torch.Tensor:
-    """One launch of the dQ kernel; lse and delta (B, Hq, Tq) fp32."""
+    """One launch of the dQ kernel (the custom op ``repro_torch::
+    flash_attention_dq``); lse and delta (B, Hq, Tq) fp32."""
+    return _dq_op(q, k, v, do, lse, delta, causal, _scale(q, scale))
+
+
+def launch_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
+               scale: Optional[float] = None):
+    """One launch of the dK/dV kernel (``repro_torch::flash_attention_dkv``);
+    returns (dk, dv)."""
+    return _dkv_op(q, k, v, do, lse, delta, causal, _scale(q, scale))
+
+
+@torch.library.custom_op("repro_torch::flash_attention_dq", mutates_args=())
+def _dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+           lse: torch.Tensor, delta: torch.Tensor, causal: bool, scale: float) -> torch.Tensor:
+    check_cuda("flash_attention_bwd", q, k, v, do)
     _check_bwd(q, k, v, do, lse, delta)
     dq = torch.empty_like(q)
     rc = _bwd_lib().flash_attention_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -146,9 +259,17 @@ def launch_dq(q, k, v, do, lse, delta, *, causal: bool = True,
     return dq
 
 
-def launch_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
-               scale: Optional[float] = None):
-    """One launch of the dK/dV kernel; returns (dk, dv)."""
+@_dq_op.register_fake
+def _(q, k, v, do, lse, delta, causal, scale):
+    _check_bwd(q, k, v, do, lse, delta)
+    return torch.empty_like(q)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_dkv", mutates_args=())
+def _dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+            lse: torch.Tensor, delta: torch.Tensor, causal: bool, scale: float
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    check_cuda("flash_attention_bwd", q, k, v, do)
     _check_bwd(q, k, v, do, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     rc = _bwd_lib().flash_attention_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -159,6 +280,12 @@ def launch_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
         raise RuntimeError(f"flash_attention_dkv launch failed (error {rc})")
     launches["flash_attention_dkv"] += 1
     return dk, dv
+
+
+@_dkv_op.register_fake
+def _(q, k, v, do, lse, delta, causal, scale):
+    _check_bwd(q, k, v, do, lse, delta)
+    return torch.empty_like(k), torch.empty_like(v)
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,

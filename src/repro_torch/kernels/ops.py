@@ -18,10 +18,21 @@ the plain versions.
 Launch counts: each kernel module keeps a ``launches`` counter that its
 wrapper bumps once per kernel launch and nowhere else; ``launch_counts``
 reads them all and ``reset_launches`` sets them to 0.
+
+Each launch is a ``torch.library.custom_op`` of the ``repro_torch``
+namespace (``flash_attention_fwd``, ``flash_attention_dq``,
+``flash_attention_dkv``, ``decode_attention``, ``decode_attention_lse``,
+``rmsnorm``): its implementation is the launch, its fake implementation
+gives the output shapes and types, so the CUDA path traces on fake tensors
+(``launch/dryrun.py``) with nothing built and no launch counted. Its work,
+(operations, bytes) from the call's shapes and lengths, is the module's
+work formula; ``KERNEL_OPS`` maps each op to its kernel name and formula,
+and the operations are registered with ``torch.utils.flop_counter``, so
+``FlopCounterMode`` counts a kernel as the bound in ``chip_smoke.py`` does.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, Tuple
 
 import torch
 
@@ -33,6 +44,54 @@ from repro_torch.kernels import rmsnorm as _rms
 KERNELS = ("flash_attention", "flash_attention_dq", "flash_attention_dkv",
            "decode_attention", "decode_attention_lse", "rmsnorm")
 _COUNTERS = (_fa.launches, _dec.launches, _rms.launches)
+
+
+def _fwd_work(q, k, v, qo, kl, qo_s, kl_s, causal, scale, **_):
+    return _fa.fwd_work(q, k, qo, kl, qo_s, kl_s, causal)
+
+
+def _dq_work(q, k, v, do, lse, delta, causal, scale, **_):
+    return _fa.bwd_work(q, k, causal)
+
+
+def _dkv_work(q, k, v, do, lse, delta, causal, scale, **_):
+    return _fa.bwd_work(q, k, causal, dkv=True)
+
+
+def _dec_work(q, k, v, kl, kl_s, blk_s, scale, **_):
+    return _dec.work(q, k, kl, kl_s)
+
+
+def _lse_work(q, k, v, kl, kl_s, blk_s, scale, **_):
+    return _dec.work(q, k, kl, kl_s, lse=True)
+
+
+def _rms_work(x, scale, eps, **_):
+    return _rms.work(x, scale)
+
+
+_r = torch.ops.repro_torch
+# op -> (kernel name, work formula over the op's arguments: (operations, bytes))
+KERNEL_OPS: Dict[object, Tuple[str, Callable]] = {
+    _r.flash_attention_fwd: ("flash_attention", _fwd_work),
+    _r.flash_attention_dq: ("flash_attention_dq", _dq_work),
+    _r.flash_attention_dkv: ("flash_attention_dkv", _dkv_work),
+    _r.decode_attention: ("decode_attention", _dec_work),
+    _r.decode_attention_lse: ("decode_attention_lse", _lse_work),
+    _r.rmsnorm: ("rmsnorm", _rms_work),
+}
+
+
+def _register_flops() -> None:
+    from torch.utils.flop_counter import flop_registry, register_flop_formula
+
+    for op, (_, work) in KERNEL_OPS.items():
+        if op not in flop_registry:  # a module reloaded keeps its first registration
+            register_flop_formula(op, get_raw=True)(
+                lambda *a, out_val=None, _w=work, **k: _w(*a, **k)[0])
+
+
+_register_flops()
 
 
 def launch_counts() -> Dict[str, int]:
@@ -52,9 +111,13 @@ def _needs_grad(*ts: torch.Tensor) -> bool:
 
 
 def flash_attention(q, k, v, *, causal: bool = True, q_offset=None, kv_len=None):
-    """q: (B,Tq,Hq,D); k, v: (B,Tk,Hkv,D). Semantics of ``ref.attention``."""
+    """q: (B,Tq,Hq,D); k, v: (B,Tk,Hkv,D). Semantics of ``ref.attention``.
+    The kernels take contiguous tensors: a strided q, k or v (the heads a
+    rank reads of a head-dim split, a chunk of an exchange) is copied into
+    that layout first."""
     if q.device.type == "cpu":
         return ref.attention(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if _needs_grad(q, k, v):
         if q_offset is not None or kv_len is not None:
             raise NotImplementedError(
@@ -72,12 +135,17 @@ def decode_attention(q, k, v, kv_len, *, lse: bool = False):
     ``ref.merge_partials`` merges (semantics of ``ref.decode_attention``)."""
     if q.device.type == "cpu":
         return ref.decode_attention(q, k, v, kv_len, lse=lse)
-    return _dec.decode_attention(q, k, v, kv_len, lse=lse)
+    return _dec.decode_attention(q.contiguous(), k.contiguous(), v.contiguous(), kv_len,
+                                 lse=lse)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """The kernel takes rows laid out one after another: a strided x (the
+    K of a head-dim split, a chunk of an exchange's columns) is copied
+    into that layout first."""
     if x.device.type == "cpu":
         return ref.rmsnorm(x, scale, eps)
+    x = x.contiguous()
     if _needs_grad(x, scale):
         return _rms.RMSNormFn.apply(x, scale, eps)
     return _rms.rmsnorm(x, scale, eps)

@@ -16,6 +16,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
@@ -36,34 +37,59 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """x: (..., d) float32 or bfloat16, contiguous and 16-byte aligned;
-    scale: (d,) float32. One launch on the current stream. The arguments are
-    checked before anything is built; the checks are kept cheap, since the
-    serve path calls this 113 times per decode step."""
-    code = DTYPES.get(x.dtype)
-    if code is None:
+def _check(x: torch.Tensor, scale: torch.Tensor) -> None:
+    """The kernel's argument rules that need no pointer."""
+    if x.dtype not in DTYPES:
         raise ValueError(f"rmsnorm: float32 or bfloat16 x, got {x.dtype}")
-    xp = x.data_ptr()
-    if xp % 16 or not x.is_contiguous():
+    if not x.is_contiguous():
         raise ValueError("rmsnorm: x must be contiguous and 16-byte aligned")
     d = x.shape[-1] if x.dim() else 0
-    sp = scale.data_ptr()
-    if (d == 0 or scale.shape != (d,) or scale.dtype != torch.float32 or sp % 16
+    if (d == 0 or scale.shape != (d,) or scale.dtype != torch.float32
             or not scale.is_contiguous()):
         raise ValueError(f"rmsnorm: scale must be a contiguous, 16-byte aligned float32 "
                          f"({d},), got {tuple(scale.shape)} {scale.dtype}")
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """x: (..., d) float32 or bfloat16, contiguous and 16-byte aligned;
+    scale: (d,) float32. One launch on the current stream, through the
+    custom op ``repro_torch::rmsnorm`` (on fake tensors, the output's shape
+    alone). The arguments are checked before anything is built; the checks
+    are kept cheap, since the serve path calls this 113 times per decode
+    step."""
+    return _op(x, scale, eps)
+
+
+@torch.library.custom_op("repro_torch::rmsnorm", mutates_args=())
+def _op(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    _check(x, scale)
+    xp, sp = x.data_ptr(), scale.data_ptr()
+    if xp % 16 or sp % 16:
+        raise ValueError("rmsnorm: x and scale must be 16-byte aligned")
     if not (x.is_cuda and scale.is_cuda):
         raise ValueError(f"rmsnorm: the kernel takes CUDA tensors, got {x.device}")
     o = torch.empty_like(x)
+    d = x.shape[-1]
     rows = x.numel() // d
     if rows == 0:
         return o
-    rc = _lib().rmsnorm_fwd(xp, sp, o.data_ptr(), rows, d, eps, code, raw_stream(x))
+    rc = _lib().rmsnorm_fwd(xp, sp, o.data_ptr(), rows, d, eps, DTYPES[x.dtype], raw_stream(x))
     if rc != 0:
         raise RuntimeError(f"rmsnorm launch failed (error {rc})")
     launches["rmsnorm"] += 1
     return o
+
+
+@_op.register_fake
+def _(x, scale, eps):
+    _check(x, scale)
+    return torch.empty_like(x)
+
+
+def work(x: torch.Tensor, scale: torch.Tensor) -> Tuple[int, int]:
+    """(operations, bytes) of one launch: 4 per element (square, sum,
+    scale twice), x read and y written once, the scale read once."""
+    return 4 * x.numel(), 2 * x.numel() * x.element_size() + scale.numel() * scale.element_size()
 
 
 class RMSNormFn(torch.autograd.Function):

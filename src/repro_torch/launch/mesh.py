@@ -17,6 +17,7 @@ rank); ``make_host_mesh`` makes a one-rank group itself.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Sequence, Tuple
 
 import torch
@@ -54,13 +55,18 @@ class Mesh:
     def batch_group(self):
         """The group of every data-parallel rank of this one (its ``pod`` x
         ``data`` sub-mesh), made on first use: every rank calls it in the
-        same order."""
+        same order. The flattened sub-mesh holds its ranks in a tensor,
+        which is made outside every dispatch mode: under the dry-run's
+        ``FakeTensorMode``, and uncounted by ``launch/hlo_analysis.py``."""
         if self._batch_group is None:
             axes = tuple(a for a in ("pod", "data") if a in self.axis_names)
             if len(axes) == 1:
                 self._batch_group = self.group(axes[0])
             else:
-                self._batch_group = self.device_mesh[axes]._flatten().get_group()
+                from torch.utils._python_dispatch import _disable_current_modes
+
+                with _disable_current_modes():
+                    self._batch_group = self.device_mesh[axes]._flatten().get_group()
         return self._batch_group
 
     def batch_index(self) -> int:
@@ -92,6 +98,31 @@ def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda") 
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return make_mesh(shape, axes, device_type)
+
+
+def make_fake_mesh(shape: Sequence[int], names: Sequence[str], *, rank: int = 0,
+                   device_type: str = "cuda") -> Mesh:
+    """``make_mesh`` over a fake default process group of prod(shape) ranks
+    (``torch.distributed``'s ``"fake"`` backend: no peers, collectives return
+    at once), this process as rank ``rank``. What the dry-run traces one
+    rank's program in (``launch/dryrun.py``); a process has one default
+    group, so this is called once per process."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a default process group exists: one fake group per process")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=math.prod(shape))
+    return make_mesh(shape, names, device_type)
+
+
+def make_fake_production_mesh(*, multi_pod: bool = False, rank: int = 0,
+                              device_type: str = "cuda") -> Mesh:
+    """``make_production_mesh`` over a fake group of 256 (single pod) or 512
+    (multi-pod) ranks, this process as rank ``rank`` (``make_fake_mesh``)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_fake_mesh(shape, axes, rank=rank, device_type=device_type)
 
 
 # One host mesh per default process group and device type: a mesh makes a

@@ -52,9 +52,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.collective import (ModelParallel, Ranges, SeqSplit, copy_to_model,
-                                         exchange_model, gather_partials, reduce_from_model,
-                                         tiles)
+from repro_torch.core.collective import (ModelParallel, Ranges, SeqSplit, acc_dtype,
+                                         copy_to_model, exchange_model, gather_partials,
+                                         reduce_from_model, tiles)
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import merge_partials
 
@@ -88,11 +88,12 @@ def init_norm(cfg: ArchConfig, dim: int, device, dtype=torch.float32) -> Params:
 def apply_norm(cfg: ArchConfig, p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     if cfg.norm == "rmsnorm":
         return ops.rmsnorm(x, p["scale"], eps)
-    xf = x.float()
+    acc = acc_dtype(x.dtype)
+    xf = x.to(acc)
     mu = xf.mean(dim=-1, keepdim=True)
     var = xf.var(dim=-1, keepdim=True, unbiased=False)
     y = (xf - mu) * torch.rsqrt(var + eps)
-    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
+    return (y * p["scale"].to(acc) + p["bias"].to(acc)).to(x.dtype)
 
 
 def rms_head_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -451,8 +452,9 @@ class _EmbedLookup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         (tokens,) = ctx.saved_tensors
-        flat = dout.reshape(-1, ctx.shape[-1]).float()
-        dtable = torch.zeros(ctx.shape, dtype=torch.float32, device=dout.device)
+        acc = acc_dtype(dout.dtype)
+        flat = dout.reshape(-1, ctx.shape[-1]).to(acc)
+        dtable = torch.zeros(ctx.shape, dtype=acc, device=dout.device)
         dtable.index_add_(0, tokens.reshape(-1), flat)
         return dtable.to(ctx.dtype), None
 

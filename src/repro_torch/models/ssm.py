@@ -52,8 +52,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, SSMConfig
-from repro_torch.core.collective import (ModelParallel, Ranges, copy_to_model, exchange_model,
-                                         reduce_from_model, tiles)
+from repro_torch.core.collective import (ModelParallel, Ranges, acc_dtype, copy_to_model,
+                                         exchange_model, reduce_from_model, tiles)
 from repro_torch.models.layers import _dense_init, heads_of_tile
 
 Params = Dict[str, Any]
@@ -183,11 +183,12 @@ def apply_mamba(
     if split:
         (dtbc,) = copy_to_model(tp, reduce_from_model(tp, dtbc))
     dt, Bm, Cm = torch.split(dtbc, [dt_rank, N, N], dim=-1)
-    delta = F.softplus((dt @ p["dt_proj"]).float() + p["dt_bias"][None, None, :])
+    acc = acc_dtype(x.dtype)
+    delta = F.softplus((dt @ p["dt_proj"]).to(acc) + p["dt_bias"][None, None, :])
     A = -torch.exp(p["A_log"])  # (d_in, N)
 
-    xb32, Bm32, Cm32 = xb.float(), Bm.float(), Cm.float()
-    h = (torch.zeros((B, xb.shape[-1], N), dtype=torch.float32, device=x.device)
+    xb32, Bm32, Cm32 = xb.to(acc), Bm.to(acc), Cm.to(acc)
+    h = (torch.zeros((B, xb.shape[-1], N), dtype=acc, device=x.device)
          if state is None else state["h"])
     ys = []
     for i in range(0, T, chunk):
@@ -256,17 +257,17 @@ def init_mlstm(cfg: ArchConfig, gen: torch.Generator, dtype=torch.bfloat16) -> P
 
 
 def init_mlstm_state(cfg: ArchConfig, batch: int, device,
-                     tp: Optional[ModelParallel] = None) -> Params:
+                     tp: Optional[ModelParallel] = None, dtype=torch.float32) -> Params:
     """Under ``tp`` this rank's rows of d_k, as ``sharding.cache_spec``
     splits the state: ``C`` (B, H, dh / M, dh), ``n`` (B, H, dh / M); ``m``
-    whole."""
+    whole. In ``dtype``: fp32, the accumulation type of a forward in fp64."""
     d_in, dh = mlstm_dims(cfg)
     H = cfg.n_heads
     dk = _local(dh, tp)
     return {
-        "C": torch.zeros((batch, H, dk, dh), dtype=torch.float32, device=device),
-        "n": torch.zeros((batch, H, dk), dtype=torch.float32, device=device),
-        "m": torch.full((batch, H), NEG_INF, dtype=torch.float32, device=device),
+        "C": torch.zeros((batch, H, dk, dh), dtype=dtype, device=device),
+        "n": torch.zeros((batch, H, dk), dtype=dtype, device=device),
+        "m": torch.full((batch, H), NEG_INF, dtype=dtype, device=device),
     }
 
 
@@ -390,17 +391,19 @@ def apply_mlstm(cfg: ArchConfig, p: Params, x: torch.Tensor, state: Optional[Par
     xb, z = up.split([H * w, up.shape[-1] - H * w], dim=-1)
     xh = xb.reshape(B, T, H, w)
     qkv = [torch.einsum("bthd,hde->bhte", xh, p[name]) for name in ("wq_blk", "wk_blk", "wv_blk")]
+    acc = acc_dtype(x.dtype)
     if split:
-        (part,) = copy_to_model(tp, reduce_from_model(tp, torch.stack(qkv), torch.float32))
+        (part,) = copy_to_model(tp, reduce_from_model(tp, torch.stack(qkv), acc))
         qkv = part.unbind(0)
     rows = slice(r * w, (r + 1) * w)
-    q, k, v = qkv[0].float()[..., rows], qkv[1].float()[..., rows], qkv[2].float()
-    gates = x.float() @ p["w_gates"] + p["b_gates"][None, None]
+    q, k, v = qkv[0].to(acc)[..., rows], qkv[1].to(acc)[..., rows], qkv[2].to(acc)
+    gates = x.to(acc) @ p["w_gates"] + p["b_gates"][None, None]
     li, lf = torch.chunk(gates, 2, dim=-1)            # (B,T,H)
     li = li.transpose(1, 2)
     lf = F.logsigmoid(lf.transpose(1, 2))
 
-    st = init_mlstm_state(cfg, B, x.device, tp if split else None) if state is None else state
+    st = (init_mlstm_state(cfg, B, x.device, tp if split else None, acc) if state is None
+          else state)
     h, st = _mlstm_chunks(q, k, v, li, lf, st, c, tp if split else None)
     h = h.transpose(1, 2).reshape(B, T, d_in)
 
@@ -416,11 +419,12 @@ def apply_mlstm(cfg: ArchConfig, p: Params, x: torch.Tensor, state: Optional[Par
 
 def _groupnorm(h: torch.Tensor, n_groups: int, scale: torch.Tensor, eps=1e-6) -> torch.Tensor:
     B, T, d = h.shape
-    hg = h.reshape(B, T, n_groups, d // n_groups).float()
+    acc = acc_dtype(h.dtype)
+    hg = h.reshape(B, T, n_groups, d // n_groups).to(acc)
     mu = torch.mean(hg, dim=-1, keepdim=True)
     var = torch.var(hg, dim=-1, keepdim=True, correction=0)
     hn = (hg - mu) * torch.rsqrt(var + eps)
-    return hn.reshape(B, T, d) * scale[None, None].float()
+    return hn.reshape(B, T, d) * scale[None, None].to(acc)
 
 
 def step_mlstm(cfg: ArchConfig, p: Params, x: torch.Tensor, state: Params,
@@ -456,17 +460,18 @@ def init_slstm(cfg: ArchConfig, gen: torch.Generator, dtype=torch.bfloat16) -> P
 
 
 def init_slstm_state(cfg: ArchConfig, batch: int, device,
-                     tp: Optional[ModelParallel] = None) -> Params:
+                     tp: Optional[ModelParallel] = None, dtype=torch.float32) -> Params:
     """Under ``tp`` the state of the heads this rank runs (``heads_of_tile``),
     (B, heads x dh) each: held as the recurrence is split, not as
-    ``sharding.cache_spec`` places these names (ROADMAP C)."""
+    ``sharding.cache_spec`` places these names (ROADMAP C). In ``dtype``:
+    fp32, the accumulation type of a forward in fp64."""
     d = cfg.d_model
     if tp is not None and d % tp.size == 0:
         a, b = heads_of_tile(cfg.n_heads, tp.size, tp.index)
         d = (b - a) * (d // cfg.n_heads)
-    zeros = lambda: torch.zeros((batch, d), dtype=torch.float32, device=device)  # noqa: E731
+    zeros = lambda: torch.zeros((batch, d), dtype=dtype, device=device)  # noqa: E731
     return {"c": zeros(), "n": zeros(), "h": zeros(),
-            "m": torch.full((batch, d), NEG_INF, dtype=torch.float32, device=device)}
+            "m": torch.full((batch, d), NEG_INF, dtype=dtype, device=device)}
 
 
 def _slstm_cell(pre_in: torch.Tensor, state: Params, r: torch.Tensor, one: torch.Tensor):
@@ -523,7 +528,8 @@ def apply_slstm(cfg: ArchConfig, p: Params, x: torch.Tensor, state: Optional[Par
         x, *leaves = copy_to_model(tp, x, *(p[k] for k in whole))
         p = {**p, **dict(zip(whole, leaves))}
     cols = slice(ha * dh, hb * dh)
-    pre = x.float() @ torch.cat([p[f"w_{k}"].float() for k in _SLSTM_GATES], dim=1)
+    acc = acc_dtype(x.dtype)
+    pre = x.to(acc) @ torch.cat([p[f"w_{k}"].to(acc) for k in _SLSTM_GATES], dim=1)
     if split and (d // M) % dh:  # tiles that are not whole heads: exchanged to heads
         have = tuple(tuple((g * d + a, g * d + b) for g in range(4) for a, b in t)
                      for t in tiles(d, M))
@@ -535,9 +541,9 @@ def apply_slstm(cfg: ArchConfig, p: Params, x: torch.Tensor, state: Optional[Par
     nh = hb - ha
     pre_in = (pre + b).reshape(B, T, 4, nh, dh).permute(1, 3, 0, 2, 4)
     pre_in = pre_in.reshape(T, nh, B, 4 * dh)
-    st = init_slstm_state(cfg, B, x.device, tp) if state is None else state
+    st = init_slstm_state(cfg, B, x.device, tp, acc) if state is None else state
     st = {k: v.reshape(B, nh, dh).transpose(0, 1) for k, v in st.items()}
-    one = torch.ones((), dtype=torch.float32, device=x.device)
+    one = torch.ones((), dtype=acc, device=x.device)
     hs = []
     for t in range(T):
         h, st = _slstm_cell(pre_in[t], st, rec, one)

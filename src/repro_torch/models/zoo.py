@@ -35,7 +35,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.collective import (ModelParallel, SeqSplit, copy_to_model,
+from repro_torch.core.collective import (ModelParallel, SeqSplit, acc_dtype, copy_to_model,
                                          gather_from_model, reduce_from_model,
                                          vocab_parallel_nll)
 from repro_torch.device import resolve
@@ -92,13 +92,14 @@ class Model(nn.Module):
     def param_shapes(self) -> Params:
         """The parameter tree as fake tensors (shapes and types, no memory
         and no draw from any generator): ``jax.eval_shape(model.init)``.
-        Made once per model."""
+        Made once per model, on the CPU (the rules read only shapes and
+        types, and a build of PyTorch without CUDA has no CUDA generator)."""
         if self._shapes is None:
+            from torch._guards import detect_fake_mode
             from torch._subclasses.fake_tensor import FakeTensorMode
 
-            gen = torch.Generator(device=self.device)
-            with FakeTensorMode():
-                self._shapes = self._init_tree(gen)
+            with detect_fake_mode() or FakeTensorMode():
+                self._shapes = self._init_tree(torch.Generator())
         return self._shapes
 
     def load(self, params: Params) -> Params:
@@ -181,7 +182,7 @@ class Model(nn.Module):
         if self._vocab_split(params, tp):
             nll = vocab_parallel_nll(tp, logits, labels)
         else:
-            lf = torch.log_softmax(logits.float(), dim=-1)
+            lf = torch.log_softmax(logits.to(acc_dtype(logits.dtype)), dim=-1)
             nll = -torch.gather(lf, -1, labels[..., None])[..., 0]
         mask = batch.get("loss_mask")
         if mask is None:

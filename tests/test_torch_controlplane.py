@@ -39,10 +39,27 @@ HUNKS = {
             return [float(u) for u in jax.random.uniform(key, (self.block,))]
 ''',
         '''        if self.backend == "jax":
-            # repro_torch never imports jax; a torch backend is ROADMAP A15.
             raise ValueError("VectorLinkRNG backend 'jax' is not available in "
-                             "repro_torch; use 'numpy' or 'python'")
+                             "repro_torch; use 'torch', 'numpy' or 'python'")
+        if self.backend == "torch":
+            # The same contract: (seed, pair, block) mixed into one 64-bit
+            # seed of an explicit generator, float64 uniforms in [0, 1).
+            import hashlib
+
+            import torch
+
+            mixed = hashlib.blake2b(f"{self.seed}:{pair_key}:{block_index}".encode(),
+                                    digest_size=8).digest()
+            gen = torch.Generator().manual_seed(int.from_bytes(mixed, "little"))
+            return torch.rand(self.block, generator=gen, dtype=torch.float64).tolist()
 ''',
+    ), (
+        '''    Backends: "numpy" (default when importable), "jax" (same contract via
+    fold_in-keyed uniforms, useful when the surrounding experiment already
+    lives on an accelerator), "python" (pure-Python fallback, no deps).''',
+        '''    Backends: "numpy" (default when importable), "torch" (same contract
+    through an explicit ``torch.Generator`` per block; "jax" is refused),
+    "python" (pure-Python fallback, no deps).''',
     )],
 }
 
@@ -78,6 +95,51 @@ def test_jax_link_rng_backend_is_refused():
     with pytest.raises(ValueError, match="jax"):
         rng.next("a", "b")
     assert 0.0 <= VectorLinkRNG(seed=0).next("a", "b") < 1.0
+
+
+def _draws(rng, pairs, n):
+    return {p: [rng.next(*p) for _ in range(n)] for p in pairs}
+
+
+def test_torch_link_rng_is_deterministic_and_per_link():
+    """The torch backend's contract: the same seed gives the same draws; a
+    link's stream does not depend on the traffic of other links; other
+    seeds and other links give other streams."""
+    pairs = [("a", "b"), ("b", "a"), ("a", "c")]
+    one = _draws(VectorLinkRNG(seed=3, block=16, backend="torch"), pairs, 40)
+    two = _draws(VectorLinkRNG(seed=3, block=16, backend="torch"), pairs[::-1], 40)
+    assert one == two
+    alone = VectorLinkRNG(seed=3, block=16, backend="torch")
+    assert [alone.next("a", "c") for _ in range(40)] == one[("a", "c")]
+    assert one[("a", "b")] != one[("b", "a")]
+    assert _draws(VectorLinkRNG(seed=4, block=16, backend="torch"), pairs, 40) != one
+
+
+def test_torch_link_rng_extends_block_by_block():
+    """A stream drawn block by block equals the blocks drawn whole, and every
+    draw lies in [0, 1)."""
+    rng = VectorLinkRNG(seed=9, block=8, backend="torch")
+    drawn = [rng.next("x", "y") for _ in range(8 * 5)]
+    whole = [u for i in range(5) for u in rng._gen_block("x", "y", i)]
+    assert drawn == whole
+    assert all(0.0 <= u < 1.0 for u in drawn)
+    assert len(set(drawn)) == len(drawn)
+
+
+def test_torch_link_rng_cluster_commits_quickstart():
+    """A vectorized-link Cluster on the torch backend commits quickstart's
+    workload through the fast track, and its committed logs agree."""
+    from repro_torch.core.sim import Cluster
+
+    c = Cluster(n=5, protocol="fastraft", seed=0, base_latency=5.0,
+                link_rng="vectorized", link_rng_backend="torch")
+    c.run_until_leader()
+    c.run(500)
+    leader = c.leader()
+    proposer = [n for n in c.nodes if n != leader][0]
+    eids = [c.submit(f"put k{i}=v{i}", via=proposer) for i in range(5)]
+    assert c.run_until_committed(eids)
+    c.check_log_consistency()
 
 
 def test_snapshot_store_copy_has_not_drifted():

@@ -17,6 +17,7 @@ batch, as ``P(("pod", "data"))`` splits it.
 """
 import dataclasses
 import functools
+import json
 import os
 import subprocess
 import sys
@@ -47,6 +48,7 @@ CASES = {
     "moe": (MOE_ARCH, DATA_MESH, False, True, 1e4, False),
 }
 POISON_RANK = 1
+COUNTED = ("stream", "stream_ef")  # cases whose first step's collectives are held to the dry-run
 
 
 def _raw_batch(arch_cfg, step):
@@ -146,12 +148,14 @@ def _rank_main(rank, world, init_file, init_path, out_path, ckpt_dir):
 
     from repro_torch.configs import registry
     from repro_torch.convert import params_from_numpy
+    from repro_torch.launch.hlo_analysis import Collectives
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import zoo
     from repro_torch.optim import adamw, compression
     from repro_torch.runtime import sharding as shd
     from repro_torch.runtime import spmd
     from repro_torch.tree import leaves_with_paths, tree_map
+    from torch_fake_group import summary
 
     dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
                             world_size=world)
@@ -179,7 +183,10 @@ def _rank_main(rank, world, init_file, init_path, out_path, ckpt_dir):
                     raw["loss_mask"] = _poison(raw["loss_mask"], b, POISON_RANK)
                 batch = {k: torch.from_numpy(v[r * b:(r + 1) * b].copy()) for k, v in raw.items()}
                 batch = {k: v if k == "loss_mask" else v.long() for k, v in batch.items()}
-                state, metrics = step(state, batch)
+                with Collectives() as counted:
+                    state, metrics = step(state, batch)
+                if i == 0 and name in COUNTED:
+                    out[f"{name}/collectives"] = np.asarray(json.dumps(summary(counted)))
                 for k, v in metrics.items():
                     out[f"{name}/metrics/{i}/{k}"] = float(v)
                 for path, leaf in leaves_with_paths(state):
@@ -637,3 +644,24 @@ def test_repro_checkpoint_with_residual_loads(runs):
 if __name__ == "__main__" and "--jax-child" in sys.argv:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     _jax_child(sys.argv[sys.argv.index("--jax-child") + 1])
+
+
+@pytest.mark.parametrize("case", COUNTED)
+def test_collectives_equal_the_dry_run(runs, case):
+    """The streamed step's collectives on rank 0, int8 pod hop or not:
+    calls, input bytes and ring bytes by kind as the gloo run counted them
+    equal the dry-run's on a fake (pod 2, data 2, model 1) group, and the
+    calls chip_smoke.py's ``dataplane_collectives`` derives."""
+    import chip_smoke as cs
+    import torch_fake_group
+    from repro_torch.configs import registry
+
+    got = json.loads(str(runs[1][f"{case}/collectives"]))
+    compress = CASES[case][2]
+    (fake,) = torch_fake_group.run(program="train", arch=ARCH, mesh=POD_MESH[0],
+                                   names=POD_MESH[1], compress=compress, rows=GLOBAL_BATCH // 4,
+                                   seq=SEQ)
+    assert got == fake
+    want = cs.dataplane_collectives(registry.get(ARCH, reduced=True), compress)
+    assert {n: c for n, (c, _) in got["collective_calls"].items()} == \
+        {n: c for n, c in want.items() if c}

@@ -1,5 +1,6 @@
-"""``repro_torch``, ``chip_smoke.py`` and the tools under ``tools/`` stand
-alone: they import neither jax nor ``repro``, and nothing in them falls back to the CPU when CUDA is
+"""``repro_torch``, ``chip_smoke.py``, the tools under ``tools/`` and the
+examples' twins under ``examples/torch/`` stand alone: they import neither
+jax nor ``repro``, and nothing in them falls back to the CPU when CUDA is
 asked for and absent."""
 import ast
 import os
@@ -14,7 +15,7 @@ torch = pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-         + sorted((ROOT / "tools").glob("*.py")))
+         + sorted((ROOT / "tools").glob("*.py")) + sorted((ROOT / "examples" / "torch").glob("*.py")))
 
 
 def _imported_roots(path: Path):
@@ -32,6 +33,8 @@ def _imported_roots(path: Path):
 
 def test_no_file_imports_jax_or_repro():
     assert (ROOT / "chip_smoke.py").exists()
+    assert {p.name for p in FILES} >= {"serve_batched.py", "train_consensus_ft.py", "dryrun.py",
+                                       "hlo_analysis.py"}
     bad = {str(p.relative_to(ROOT)): sorted(set(_imported_roots(p)) & FORBIDDEN)
            for p in FILES}
     assert not {k: v for k, v in bad.items() if v}

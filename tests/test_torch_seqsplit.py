@@ -356,7 +356,9 @@ def _rank_main(rank, world, init_file, init_path, out_dir):
     from repro_torch.core import collective as C
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import zoo
+    from repro_torch.launch.hlo_analysis import Collectives
     from repro_torch.runtime.serve import build_serve_fns, shard_params
+    from torch_fake_group import summary
 
     dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
                             world_size=world)
@@ -374,16 +376,20 @@ def _rank_main(rank, world, init_file, init_path, out_dir):
             tokens = torch.from_numpy(_tokens(cfg.vocab_size, B)).long()
             prefill_fn, decode_fn = build_serve_fns(model, S, "cpu", mesh)
             C.reset_tp_counts()
-            logits, cache = prefill_fn(local, {"tokens": tokens[:, :PROMPT]})
-            counts = [C.tp_counts()]
+            with Collectives() as counted:
+                logits, cache = prefill_fn(local, {"tokens": tokens[:, :PROMPT]})
+            counts, collectives = [C.tp_counts()], [summary(counted)]
             steps = [logits]
             for i in range(DECODES):
                 C.reset_tp_counts()
-                logits, cache = decode_fn(local, cache,
-                                          {"tokens": tokens[:, PROMPT + i:PROMPT + i + 1]})
+                with Collectives() as counted:
+                    logits, cache = decode_fn(local, cache,
+                                              {"tokens": tokens[:, PROMPT + i:PROMPT + i + 1]})
                 counts.append(C.tp_counts())
+                collectives.append(summary(counted))
                 steps.append(logits)
             out[case] = {"logits": torch.stack(steps), "counts": counts,
+                         "collectives": collectives,
                          "cache": {k: tuple(v.shape) for k, v in cache["layers"]["b0"].items()},
                          "coords": {a: mesh.axis_index(a) for a in mesh.axis_names}}
             if case == "qwen_b3_d2":  # (v): a cached step of two tokens over the split
@@ -487,3 +493,27 @@ def test_multi_token_step_over_a_split_cache_raises(runs):
     any collective."""
     for out in runs[0][2]:
         assert "several tokens" in out["multi_token"], out.get("multi_token")
+
+
+def test_seq_split_collectives_equal_the_dry_run(runs):
+    """Batch 1 on (data 4, model 1), every cache split over the sequence:
+    each call's collectives on rank 0 (the prefill, then each decode step's
+    gather of the partials) as gloo counted them equal the dry-run's on a
+    fake (4, 1) group, and the calls chip_smoke.py's ``seq_collectives``
+    derives."""
+    import chip_smoke as cs
+    import torch_fake_group
+    from repro_torch.configs import registry
+
+    arch, B, S, mesh = CASES["qwen_b1_d4"]
+    cfg = _cfg(registry, arch)
+    fake = torch_fake_group.run(program="serve", arch=ARCHS[arch][0], mesh=MESHES[mesh][0],
+                                names=MESHES[mesh][1], max_len=S, batch=B, prompt=PROMPT,
+                                decodes=DECODES)
+    got = runs[0][4][0]["qwen_b1_d4"]["collectives"]
+    assert got == fake
+    for i, call in enumerate(got):
+        tokens, pos = (PROMPT, 0) if i == 0 else (1, PROMPT + i - 1)
+        want = cs.seq_collectives(cfg, B, tokens, pos, 4, 1, cfg.n_heads)[1]
+        assert {n: c for n, (c, _) in call["collective_calls"].items()} == \
+            {n: c for n, c in want.items() if c}

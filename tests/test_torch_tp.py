@@ -453,23 +453,55 @@ def _serve_both(cfg, mesh, tokens, prompt=PROMPT):
 
 def _kv_split_rank(rank):
     from repro_torch.configs import registry
+    from repro_torch.launch.hlo_analysis import Collectives
     from repro_torch.launch.mesh import make_mesh
+    from torch_fake_group import summary
 
     cfg = registry.get("qwen3-1.7b", reduced=True)
     tokens = torch.from_numpy(_tokens(cfg.vocab_size)).long()
-    err, cache, _ = _serve_both(cfg, make_mesh((1, 4), ("data", "model"), "cpu"), tokens)
-    return {"err": err, "cache": tuple(cache["layers"]["b0"]["k"].shape)}
+    with Collectives() as counted:  # the one-rank run beside it has no collective
+        err, cache, _ = _serve_both(cfg, make_mesh((1, 4), ("data", "model"), "cpu"), tokens)
+    return {"err": err, "cache": tuple(cache["layers"]["b0"]["k"].shape),
+            "collectives": summary(counted)}
 
 
-def test_kv_heads_that_do_not_split_whole_raise(tmp_path):
+@pytest.fixture(scope="module")
+def kv_split(tmp_path_factory):
+    return _on_ranks("_kv_split_rank", 4, tmp_path_factory.mktemp("kv_split"))
+
+
+def test_kv_heads_that_do_not_split_whole_raise(kv_split):
     """Reduced qwen3-1.7b has 2 KV heads of 16: on a "model" axis of 4, wk's
     slice is half a head. This once raised; now each rank's cache holds both
     KV heads and 4 of their 16 dims, as cache_spec places it, and serving
     on (data=1, model=4) gives the one-rank port's logits on every rank
     (repro's: tests/test_torch_tp_headdim.py)."""
-    for out in _on_ranks("_kv_split_rank", 4, tmp_path):
+    for out in kv_split:
         assert out["cache"] == (2, 2, MAX_LEN, 2, 4)
         assert out["err"] <= 2e-4, out["err"]
+
+
+def test_tp_serve_collectives_equal_the_dry_run(kv_split):
+    """That serve run's collectives on rank 0 (a prefill and DECODES decode
+    steps): calls, input bytes and ring bytes by kind as gloo counted them
+    equal the dry-run's on a fake (1, 4) group, and the calls chip_smoke.py's
+    ``tp_collectives`` derives."""
+    import chip_smoke as cs
+    import torch_fake_group
+    from repro_torch.configs import registry
+
+    cfg = registry.get("qwen3-1.7b", reduced=True)
+    fake = torch_fake_group.run(program="serve", arch="qwen3-1.7b", mesh=[1, 4],
+                                names=["data", "model"], max_len=MAX_LEN, batch=2,
+                                prompt=PROMPT, decodes=DECODES)
+    got = kv_split[0]["collectives"]
+    assert got == torch_fake_group.total(fake)
+    want = {}
+    for tokens, pos in [(PROMPT, 0)] + [(1, PROMPT + i) for i in range(DECODES)]:
+        for n, c in cs.tp_collectives(cfg, 2, tokens, pos, 4, M=4)[1].items():
+            want[n] = want.get(n, 0) + c
+    assert {n: c for n, (c, _) in got["collective_calls"].items()} == \
+        {n: c for n, c in want.items() if c}
 
 
 def _mamba_rank(rank):
