@@ -3,24 +3,28 @@
 
     python3 chip_smoke.py
 
-It drives five models through the port's entry points: qwen3-1.7b (dense,
-head dim 128), granite-moe-1b-a400m (MoE, 32 experts top-8, head dim 64),
-jamba-v0.1-52b (Mamba + attention + MoE, one period of its 32 layers),
-xlstm-1.3b (mLSTM + sLSTM) and, tensor parallel only, phi3-medium-14b (10
-KV heads; 4 of its 40 layers). Phases, in order; any failure ends the run with
-a non-zero exit:
+It drives all ten archs of the registry through the port's entry points:
+qwen3-1.7b (dense, head dim 128), granite-moe-1b-a400m (MoE, 32 experts
+top-8, head dim 64), jamba-v0.1-52b (Mamba + attention + MoE, one period of
+its 32 layers), xlstm-1.3b (mLSTM + sLSTM), phi3-medium-14b (10 KV heads;
+tensor parallel on 4 of its 40 layers, one rank at full depth), and in
+phase 27 qwen3-4b, qwen1.5-4b (MHA, QKV bias), internvl2-2b (vision stub),
+musicgen-large (audio stub, LayerNorm, GELU, learned positions, MHA at
+head dim 64) and llama4-scout-17b-a16e (16 experts top-1, GQA group 5; 12
+of its 48 layers). Phases, in order; any failure ends the run with a
+non-zero exit:
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the CUDA kernels from the repo's sources (one nvcc per source);
   3. hold every kernel against its plain PyTorch version on the card, at the
      serve and training paths' full-width shapes of the models (jamba's
      32 / 8 heads of 128 and rows of 4096 among them) and at
-     reduced ones (GQA group 2, 4 and 8, MQA, non-causal, Tq and Tk that are
+     reduced ones (GQA group 1, 2, 4, 5 and 8, MQA, non-causal, Tq and Tk that are
      not multiples of K1's, K2's or K3's tiles, a kv_len that ends inside a
      key tile, one row into a split, at 1 or at the cache's end, rows of one
      batch that end in the first split and at the cache's end, an int kv_len
      next to a (B,) tensor, q_offset > 0 over a cache longer than kv_len,
      head dims 16 / 64 / 128, RMSNorm rows of 16 / 64 / 100 / 128 / 1024 /
-     2048 / 5000), in float32 (atol 1e-4: only the order of sums differs)
+     2048 / 2560 / 5000), in float32 (atol 1e-4: only the order of sums differs)
      and bfloat16 (atol 2e-2, rtol 1e-2); K1's lse too, against the plain
      logsumexp; K2 and K3 on rows whose scores all lie near -120 (dQ against
      its plain version, dK and dV finite); K4 at kv_len 0 (exactly 0) and in
@@ -34,7 +38,9 @@ a non-zero exit:
      PyTorch library call as a yardstick (the port never calls that library
      function): CUDA events around the call (ms) and the kernels' own device
      time from torch.profiler (device_ms, library_device_ms); K1, K4 and K5
-     also at jamba's shapes, and the variant at phase 24 (b)'s slice;
+     also at jamba's shapes, K1 and K4 at phase 27's heads that no other
+     row has (20 / 20 and 40 / 8 and 40 / 10 of 128, 32 / 32 of 64), K5 at
+     rows of 2560, and the variant at phase 24 (b)'s slice;
   4. serve-path parity: qwen3-1.7b at full width with 2 layers in float32
      serves 2 ragged requests (prefill + 4 decode steps) on the card through
      the kernels and on the CPU through the plain versions; logits agree
@@ -74,15 +80,16 @@ a non-zero exit:
      counts derived from the layer kinds;
   17. its profile, the mixers' kernels in a group ``ssm.mamba`` (profiler
      ranges around the mixer, as around the MoE stages);
-  18. serve full xlstm-1.3b (48 layers, bf16), and its profile with groups
-     ``ssm.mlstm`` and ``ssm.slstm``;
+  18. serve the first period of xlstm-1.3b (8 of its 48 layers: 7 mLSTM +
+     1 sLSTM, bf16), and its profile with groups ``ssm.mlstm`` and
+     ``ssm.slstm``;
   19. train-step parity as phase 7 for 2-layer jamba (mamba + attn, no MoE:
      the MoE's is phase 13's) and xlstm, with exact launch counts;
-  20. train one period of xlstm-1.3b (8 of its 48 layers: 7 mLSTM + 1
-     sLSTM; bf16, 4 x 1024) as phase 8;
+  20. train xlstm-1.3b cut to one layer of each kind (mLSTM, sLSTM; bf16,
+     4 x 1024) as phase 8;
   21. the data plane: four spawned ranks, all on this card, over a
      (pod=2, data=2, model=1) mesh on gloo (NCCL refuses two ranks on one
-     device) train full-width qwen3-1.7b cut to 4 layers, one 1024-token
+     device) train full-width qwen3-1.7b cut to 2 layers, one 1024-token
      sequence a rank: FSDP weights streamed per layer group (ZeRO-3) on K1 /
      K2 / K3 / K5. (a) two fp32 steps against a one-rank step of the whole
      batch run before the spawn: loss and grad_norm at rtol 1e-4, the
@@ -97,13 +104,13 @@ a non-zero exit:
      (gloo) (a) hold 2-layer full-width qwen3-1.7b and granite-moe-1b-a400m
      (fp32) on (data=1, model=4) to one rank on the card: prefill + 2
      decode logits at atol/rtol 2e-3, no expert choice or capacity-mask
-     entry different; (b) serve both at full depth (bf16; qwen 4 query and
+     entry different; (b) serve both cut to 2 layers (bf16; qwen 4 query and
      2 KV heads of 128 a rank, granite 8 experts a rank and its odd
      vocabulary whole) as phases 5 / 11, with exact K1 / K4 / K5 launches
      and all-reduce / all-gather calls and bytes per prefill and decode
      step, per-rank peak memory and walls, rank 0's in-path K1 / K4 device
      time, and how many greedy tokens equal the one-rank run's (reported,
-     not gated: bf16 near-ties may flip); (c) train 4-layer qwen3-1.7b
+     not gated: bf16 near-ties may flip); (c) train 2-layer qwen3-1.7b
      (fp32) on (data=2, model=2) for two steps against phase 21's one-rank
      baseline at its tolerances, with exact launches and collective calls;
   23. tensor parallelism of the recurrent mixers and of KV heads split
@@ -113,15 +120,16 @@ a non-zero exit:
      ranks: each rank caches a quarter of every head's dims and pads its
      10 query heads to 12 over the 3 KV heads they read) in fp32 on
      (data=1, model=4) to one rank on the card at atol/rtol 2e-3, no expert
-     choice or capacity-mask entry different; (b) serve the first period
-     of jamba and of xlstm (8 layers each) and phi3-medium-14b cut to 4 of
-     40 layers (bf16) as phase 5, with exact K1 / K4 / K5 launches and
+     choice or capacity-mask entry different; (b) serve jamba and xlstm cut
+     to one layer of each kind (mamba + attn with its MoE, mLSTM + sLSTM)
+     and phi3-medium-14b cut to 4 of 40 layers (bf16) as phase 5, with
+     exact K1 / K4 / K5 launches and
      all_reduce / all_to_all / all-gather calls and bytes per prefill and
      decode step (``tp_collectives``), per-rank peak memory and walls, rank
      0's in-path K1 / K4 device time, and the greedy tokens and prefill
      logits beside one rank's run of the same cut and its one-ulp twin's
-     (phase 16's for jamba; reported, not gated); (c) train one xlstm-1.3b
-     period (8 layers, fp32) on (data=2, model=2) for two steps against a
+     (reported, not gated); (c) train xlstm-1.3b cut to one mLSTM and one
+     sLSTM layer (fp32) on (data=2, model=2) for two steps against a
      one-rank baseline, with exact
      collective calls: loss at phase 21's rtol 1e-4, grad norm at twice the
      spread of three twins of the baseline (its fp32 noise floor) where
@@ -161,10 +169,21 @@ a non-zero exit:
      device-busy time and K4-lse's in-path device time are logged;
   26. the examples' twins on the card: ``examples/torch/serve_batched.py``
      and ``examples/torch/train_consensus_ft.py --model-scale full --steps
-     120 --crash-at 60`` must each end with the line OK.
+     60 --crash-at 30`` must each end with the line OK;
+  27. the six archs that no phase before runs on one card, each at full
+     width, one model on the card at a time: (a) serve-path parity as phase
+     4 (2 layers, fp32, card vs CPU, atol/rtol 2e-3; the frontend stubs'
+     prefill takes embeddings from a numpy seed, their decode steps tokens;
+     llama4's expert choices and capacity masks equal); (b) serve as phase 5
+     and profile as phase 6, in bf16 at full depth (llama4-scout cut to 12
+     layers, 54 GB), the frontend stubs on 8 x 1024 embeddings, with exact
+     K1 / K4 / K5 launches (no K5 for musicgen's LayerNorm); (c) for
+     qwen1.5-4b, musicgen-large, internvl2-2b (an embeddings batch) and
+     llama4-scout without its MoE, train-step parity as phase 7 with exact
+     launches; each arch's peak memory and seconds logged.
 
-The lines before the last are the granite shapes' (D 64) and jamba's
-shapes' kernel timings as one JSON object each, the card's name and power
+The lines before the last are the granite shapes' (D 64), jamba's shapes'
+and phase 27's shapes' kernel timings as one JSON object each, the card's name and power
 limit, and a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``. There
 is no CPU fallback: with no CUDA device the script exits non-zero and prints
@@ -212,6 +231,16 @@ DECODE_KV = PROMPT + GEN // 2  # kv_len of the middle decode step
 G_DECODE_KV = PROMPT + 1       # kv_len of the first decode step
 # Full-width training shape: global batch 4 x 1024 tokens.
 B_TRAIN, SEQ_TRAIN = 4, 1024
+# Phase 27's archs, and the full-width heads of theirs that no earlier row
+# has (q heads, KV heads, D): qwen1.5-4b's and musicgen-large's group 1,
+# llama4-scout's group 5, phi3-medium-14b's 40 / 10; qwen3-4b has jamba's
+# 32 / 8 and internvl2-2b qwen3-1.7b's 16 / 8. Rows of 2560: qwen3-4b's and
+# qwen1.5-4b's d_model; of 5120: phi3-medium-14b's and llama4-scout's.
+Q3_4B, Q15_4B, INTERNVL, MUSICGEN = "qwen3-4b", "qwen1.5-4b", "internvl2-2b", "musicgen-large"
+LLAMA4 = "llama4-scout-17b-a16e"
+ARCH_HEADS = ((20, 20, 128), (32, 32, 64), (40, 8, 128), (40, 10, 128))
+ARCH_HEADS_OF = ((Q15_4B,), (MUSICGEN,), (LLAMA4,), (PHI3,))
+Q4_D_MODEL, P_D_MODEL = 2560, 5120
 # Phase 24 (b): decode_32k's seq_len (configs/shapes.py) over 4 data ranks.
 SEQ_LONG_LEN, SEQ_LONG_PROMPT, SEQ_LONG_STEPS = 32768, 24574, 6
 SEQ_SLICE = SEQ_LONG_LEN // 4
@@ -336,6 +365,13 @@ def check_kernels(dev, timer):
         (2, 61, 80, 4, 2, 16, 0, 61, True),          # reduced prefill, D 16 (mma.sync kernel)
         (B_SERVE, PROMPT, MAX_LEN, HQ, HKV, G_HD, 0, PROMPT, True),  # granite's prefill, D 64
         (B_SERVE, PROMPT, MAX_LEN, J_HQ, J_HKV, HD, 0, PROMPT, True),  # jamba's prefill, group 4
+        # Phase 27's archs: GQA group 1 (MHA) and 5, full width and reduced.
+        *((B_SERVE, PROMPT, MAX_LEN, hq, hkv, hd, 0, PROMPT, True) for hq, hkv, hd in ARCH_HEADS),
+        (2, 150, 230, 3, 3, 64, 0, 150, True),       # MHA, prefill into a longer cache, D 64
+        (1, 200, 200, 5, 5, 128, None, None, True),  # MHA, uncached
+        (1, 200, 200, 10, 2, 128, None, None, True), # group 5, uncached
+        (2, 100, 180, 10, 2, 64, [0, 40], [100, 140], True),  # group 5, cached, per-row offsets
+        (2, 61, 80, 5, 1, 16, 0, 61, True),          # group 5 on one KV head, D 16
     ]
     decode_cases = [  # B, S, Hq, Hkv, D, kv_len (a list goes as a (B,) tensor)
         (B_SERVE, MAX_LEN, HQ, HKV, HD, [DECODE_KV] * 7 + [5]),
@@ -347,10 +383,21 @@ def check_kernels(dev, timer):
         (B_SERVE, MAX_LEN, HQ, HKV, HD, [100, MAX_LEN, 1, 300, 512, 513, 1000, MAX_LEN]),
         (3, 80, 4, 2, 16, [1, 37, 80]),
         (2, 333, 8, 2, 64, [5, 333]),
+        # Phase 27's archs: one head per block (group 1) and group 5 in 8-head
+        # blocks, full width and reduced; kv_len ending inside a split.
+        *((B_SERVE, MAX_LEN, hq, hkv, hd, [DECODE_KV] * 7 + [5]) for hq, hkv, hd in ARCH_HEADS),
+        (3, 600, 4, 4, 128, [1, 300, 513]),
+        (2, 700, 3, 3, 64, [256, 601]),
+        (2, 333, 10, 2, 64, [257, 333]),
+        (3, 80, 5, 1, 16, [1, 37, 80]),
+        (2, 600, 10, 2, 128, [300, 600]),
     ]
     rms_cases = [(B_SERVE * PROMPT, D_MODEL), (B_SERVE, D_MODEL),
                  (B_SERVE * PROMPT, G_D_MODEL), (B_SERVE, G_D_MODEL),  # granite's rows
                  (B_SERVE * PROMPT, J_D_MODEL), (B_SERVE, J_D_MODEL),  # jamba's rows
+                 (B_SERVE * PROMPT, Q4_D_MODEL), (B_SERVE, Q4_D_MODEL),  # qwen3-4b's, qwen1.5-4b's
+                 (B_SERVE * PROMPT, P_D_MODEL), (B_SERVE, P_D_MODEL),  # phi3's, llama4's
+                 (2 * 128, P_D_MODEL),  # phase 27 (c)'s train rows (llama4's, fp32)
                  (B_SERVE * PROMPT * HQ, HD), (B_SERVE * HKV, HD), (122, 16), (1000, 64),
                  (333, 100), (7, 5000)]  # d not a multiple of 8; a row too long for registers
 
@@ -413,7 +460,29 @@ def check_kernels(dev, timer):
     moe = [timed(e, timer, errs) for e in forward_entries(gen, G_D_MODEL, G_HD, G_DECODE_KV)]
     jamba = [timed(e, timer, errs)
              for e in forward_entries(gen, J_D_MODEL, HD, DECODE_KV, J_HQ, J_HKV)]
-    return dense + [timed(lse_entry(gen), timer, errs)], moe, jamba
+    archs = [timed(e, timer, errs) for e in arch_entries(gen)]
+    return dense + [timed(lse_entry(gen), timer, errs)], moe, jamba, archs
+
+
+def arch_entries(gen):
+    """K1 and K4 at phase 27's full-width heads that no earlier row times
+    (``ARCH_HEADS``), K5 at rows of 2560 and 5120: each entry with the shape
+    it was timed at and the archs that launch it there."""
+    out = []
+    for (hq, hkv, hd), archs in zip(ARCH_HEADS, ARCH_HEADS_OF):
+        shape = f"{hq} / {hkv} heads of {hd}"
+        out += [dict(flash_entry(gen, hd, hq, hkv), shape=shape, archs=archs),
+                dict(decode_entry(gen, hd, DECODE_KV, hq, hkv), shape=shape, archs=archs)]
+    for d, archs in ((Q4_D_MODEL, (Q3_4B, Q15_4B)), (P_D_MODEL, (PHI3, LLAMA4))):
+        out.append(dict(rms_entry(gen, d), shape=f"rows of {d}", archs=archs))
+    return out
+
+
+def arch_launches(e, counts):
+    """Launches of ``e``'s kernel in phase 27's runs (serve and train) of
+    the archs that launch it at ``e``'s shape."""
+    return sum(c[e["name"]] for (arch, part), c in counts.items()
+               if arch in e["archs"] and part in ("serve27", "train27"))
 
 
 def lse_entry(gen):
@@ -480,25 +549,20 @@ def check_lse(gen, dtype, errs):
     log("  decode_attention_lse kv_len 0: o exactly 0, lse exactly NEG_INF (ok)")
 
 
-def forward_entries(gen, d_model, hd, decode_kv, hq=HQ, hkv=HKV):
-    """K1, K4 and K5 at one model's full-width serve shapes (``hq`` / ``hkv``
-    heads of ``hd``, rows of ``d_model``), bf16: each with its plain version,
-    its library call and its bound."""
-    from repro_torch.kernels import decode_attention as dec
+def flash_entry(gen, hd, hq=HQ, hkv=HKV):
+    """K1 at a model's full-width prefill (``hq`` / ``hkv`` heads of
+    ``hd``, attention over the cache with kv_len = prompt), bf16, with its
+    plain version, its library call and its bound."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
-    from repro_torch.kernels import rmsnorm as rms
 
     import torch.nn.functional as F
 
-    log(f"phase 3: timing at full-width shapes, {hq} / {hkv} heads of D {hd}, rows of "
-        f"{d_model}, bf16")
+    log(f"phase 3: timing flash_attention at {hq} / {hkv} heads of D {hd}, bf16")
     bf = torch.bfloat16
-    out = []
-    # K1: prefill attention over the cache, kv_len = prompt.
     q = randn(gen, (B_SERVE, PROMPT, hq, hd), bf)
     k, v = randn(gen, (B_SERVE, MAX_LEN, hkv, hd), bf), randn(gen, (B_SERVE, MAX_LEN, hkv, hd), bf)
-    out.append(dict(
+    return dict(
         name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:87",
         fn=lambda: fa.flash_attention_fwd(q, k, v, q_offset=0, kv_len=PROMPT),
@@ -506,10 +570,22 @@ def forward_entries(gen, d_model, hd, decode_kv, hq=HQ, hkv=HKV):
         library=lambda: F.scaled_dot_product_attention(
             q.transpose(1, 2), k[:, :PROMPT].transpose(1, 2), v[:, :PROMPT].transpose(1, 2),
             is_causal=True, enable_gqa=True),
-        bound=work_bound(fa.fwd_work(q, k, qo_s=0, kl_s=PROMPT), bf)))
-    # K4: one decode step's attention, kv_len = decode_kv for the whole batch.
+        bound=work_bound(fa.fwd_work(q, k, qo_s=0, kl_s=PROMPT), bf))
+
+
+def decode_entry(gen, hd, decode_kv, hq=HQ, hkv=HKV):
+    """K4 at one full-width decode step (kv_len = ``decode_kv`` for the
+    whole batch), bf16, as ``flash_entry``."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import ref
+
+    import torch.nn.functional as F
+
+    log(f"phase 3: timing decode_attention at {hq} / {hkv} heads of D {hd}, bf16")
+    bf = torch.bfloat16
     qd = randn(gen, (B_SERVE, hq, hd), bf)
-    out.append(dict(
+    k, v = randn(gen, (B_SERVE, MAX_LEN, hkv, hd), bf), randn(gen, (B_SERVE, MAX_LEN, hkv, hd), bf)
+    return dict(
         name="decode_attention", route="cuda", source="src/repro_torch/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:62",
         fn=lambda: dec.decode_attention(qd, k, v, decode_kv),
@@ -517,17 +593,33 @@ def forward_entries(gen, d_model, hd, decode_kv, hq=HQ, hkv=HKV):
         library=lambda: F.scaled_dot_product_attention(
             qd[:, :, None], k[:, :decode_kv].transpose(1, 2), v[:, :decode_kv].transpose(1, 2),
             enable_gqa=True),
-        bound=work_bound(dec.work(qd, k, None, decode_kv), bf)))
-    # K5: the prefill's norm1 / norm2 / final norm rows.
+        bound=work_bound(dec.work(qd, k, None, decode_kv), bf))
+
+
+def rms_entry(gen, d_model):
+    """K5 at the prefill's norm1 / norm2 / final-norm rows of ``d_model``,
+    bf16, as ``flash_entry``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rms
+
+    import torch.nn.functional as F
+
+    log(f"phase 3: timing rmsnorm at rows of {d_model}, bf16")
+    bf = torch.bfloat16
     x, s = randn(gen, (B_SERVE * PROMPT, d_model), bf), randn(gen, (d_model,), torch.float32)
     s_bf = s.to(bf)  # the fused library kernel wants the weight in x's type
-    out.append(dict(
+    return dict(
         name="rmsnorm", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
         replaces="src/repro/kernels/rmsnorm.py:34",
         fn=lambda: rms.rmsnorm(x, s), plain=lambda: ref.rmsnorm(x, s),
         library=lambda: F.rms_norm(x, (d_model,), weight=s_bf, eps=1e-6),
-        bound=work_bound(rms.work(x, s), torch.float32)))
-    return out
+        bound=work_bound(rms.work(x, s), torch.float32))
+
+
+def forward_entries(gen, d_model, hd, decode_kv, hq=HQ, hkv=HKV):
+    """K1, K4 and K5 at one model's full-width serve shapes."""
+    return [flash_entry(gen, hd, hq, hkv), decode_entry(gen, hd, decode_kv, hq, hkv),
+            rms_entry(gen, d_model)]
 
 
 def timed(e, timer, errs):
@@ -573,6 +665,14 @@ def check_backward(dev, timer):
         (1, 129, 4, 2, 128, True, False),   # one query past K2's 128-query block
         (2, 40, 4, 2, 64, True, False),     # under one of K2's 64-key tiles
         (1, 200, 8, 1, 128, True, False),   # GQA group 8
+        # Phase 27's train-step parity shapes (groups 1 and 5), and reduced ones.
+        (2, 128, 20, 20, 128, True, False),  # qwen1.5-4b, MHA
+        (2, 128, 32, 32, 64, True, False),   # musicgen-large, MHA, D 64
+        (2, 128, 40, 8, 128, True, False),   # llama4-scout, group 5
+        (1, 96, 10, 2, 64, True, False),     # group 5, D 64
+        (1, 333, 10, 2, 128, True, False),   # group 5, ragged across the tiles
+        (2, 200, 5, 5, 128, True, False),    # MHA, D 128
+        (2, 77, 5, 1, 16, True, False),      # group 5 on one KV head, D 16
         # lse ~ -114: K2's zero-filled keys past Tk would give P = inf there;
         # dQ is checked (finite, and against the plain version), dK and dV
         # for finiteness.
@@ -841,9 +941,16 @@ def stage_split(kernels, ops, ranges):
             call[3] += ms
             call[4] += 1
     out, kinds = {}, {}
-    for name, thread, ks, ms, launches in calls:
+    for i, (name, thread, ks, ms, launches) in enumerate(calls):
         if not ks:
-            raise ProfileLost(f"the profiler put no kernel in a call of {name}")
+            same = [c for c in calls if c[0] == name]
+            unlinked = sum(corr not in ops for _, _, corr in kernels)
+            raise ProfileLost(
+                f"the profiler put no kernel in a call of {name} (call "
+                f"{sum(c[0] == name for c in calls[:i])} "
+                f"of {len(same)}, {sum(not c[2] for c in same)} of them empty; {len(kernels)} "
+                f"kernels, {unlinked} without their launching op, {len(ops)} ops, "
+                f"{len(ranges)} ranges)")
         kinds.setdefault((name, thread), []).append(tuple(sorted(ks)))
         total = out.get(name, (0.0, 0))
         out[name] = (total[0] + ms, total[1] + launches)
@@ -868,7 +975,8 @@ def stage_split(kernels, ops, ranges):
 # The 2-layer cuts of the parity phases: the first two layers, or for a
 # recurrent arch one layer of each kind it mixes.
 TWO_LAYERS = {DENSE: {}, MOE: {}, JAMBA: {"block_pattern": ("mamba", "attn")},
-              XLSTM: {"block_pattern": ("mlstm", "slstm")}, PHI3: {}}
+              XLSTM: {"block_pattern": ("mlstm", "slstm")}, PHI3: {}, Q3_4B: {}, Q15_4B: {},
+              INTERNVL: {}, MUSICGEN: {}, LLAMA4: {}}
 
 
 def two_layers(arch, **changes):
@@ -923,9 +1031,9 @@ def train_launches(cfg):
 # ------------------------------------------------- phases 4, 10 and 15
 
 def path_parity(dev, arch, phase):
-    from repro_torch.convert import params_from_numpy, params_to_numpy
     from repro_torch.models import zoo
     from repro_torch.runtime.serve import build_serve_fns
+    from repro_torch.tree import tree_map
 
     cfg = two_layers(arch)
     log(f"phase {phase}: path parity, {arch} full width, 2 layers {cfg.block_types()}, "
@@ -933,11 +1041,15 @@ def path_parity(dev, arch, phase):
     gpu = zoo.build(cfg, dtype=torch.float32, device=dev)
     gparams = gpu.init(torch.Generator(device=dev).manual_seed(1))
     cpu = zoo.build(cfg, dtype=torch.float32, device="cpu")
-    cparams = cpu.load(params_from_numpy(params_to_numpy(gparams), "cpu"))
+    cparams = cpu.load(tree_map(lambda t: t.to("cpu", copy=True), gparams))
     max_len, T = 80, 61
     rng = torch.Generator().manual_seed(2)
     tokens = torch.randint(1, cfg.vocab_size, (2, T + 4), generator=rng)
-    tokens[1, :T - 45] = 0  # request 1 holds 45 prompt tokens, left-padded with 0
+    if cfg.frontend is None:
+        tokens[1, :T - 45] = 0  # request 1 holds 45 prompt tokens, left-padded with 0
+        prompt = {"tokens": tokens[:, :T]}
+    else:  # a frontend stub's prompt: embeddings, as repro/launch/serve.py makes them
+        prompt = {"embeddings": frontend_embeddings(cfg, 2, T, seed=2)}
     fns = {name: build_serve_fns(model, max_len, device)
            for name, model, device in (("card", gpu, dev), ("cpu", cpu, "cpu"))}
     params = {"card": gparams, "cpu": cparams}
@@ -948,8 +1060,7 @@ def path_parity(dev, arch, phase):
             for name in ("card", "cpu"):
                 prefill_fn, decode_fn = fns[name]
                 if step == 0:
-                    logits[name], caches[name] = prefill_fn(params[name],
-                                                            {"tokens": tokens[:, :T]})
+                    logits[name], caches[name] = prefill_fn(params[name], prompt)
                 else:
                     batch = {"tokens": tokens[:, T + step - 1:T + step]}
                     logits[name], caches[name] = decode_fn(params[name], caches[name], batch)
@@ -967,19 +1078,31 @@ def path_parity(dev, arch, phase):
 
 # ------------------------------------------ phases 5-6, 11-12 and 16-18
 
+def frontend_embeddings(cfg, B, T, seed):
+    """A frontend stub's prompt: (B, T, d_model) float32 embeddings from a
+    numpy seed, as ``repro/launch/serve.py`` makes them."""
+    rng = np.random.RandomState(seed)
+    return torch.as_tensor(rng.randn(B, T, cfg.d_model), dtype=torch.float32)
+
+
 def serve_prompt(cfg):
     """8 prompts of 1024 tokens from a seed; request 3 holds 1000 tokens,
-    left-padded with 0."""
+    left-padded with 0. A frontend stub's arch takes 8 x 1024 embeddings
+    (``frontend_embeddings``), with no padding: ``repro``'s launcher has
+    none."""
+    if cfg.frontend is not None:
+        return {"embeddings": frontend_embeddings(cfg, B_SERVE, PROMPT, seed=3)}
     rng = torch.Generator().manual_seed(3)
     tokens = torch.randint(1, cfg.vocab_size, (B_SERVE, PROMPT), generator=rng)
     tokens[3, :PROMPT - 1000] = 0
     return {"tokens": tokens}
 
 
-def serve(dev, card, cfg, phase, profile_phase):
+def serve(dev, card, cfg, phase, profile_phase, record=True):
     """Serves ``cfg`` (bf16, random weights) after a Fast Raft rollout, checks
     the logits and the launch counts, then profiles one prefill and one
-    decode step as phase ``profile_phase``."""
+    decode step as phase ``profile_phase``; with ``record``, keeps the run
+    and its one-ulp twin's for phases 22-23 (``record_served``)."""
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import generate
     from repro_torch.models import zoo
@@ -1025,7 +1148,8 @@ def serve(dev, card, cfg, phase, profile_phase):
         f"{t_dec * 1e3 / steps:.3f} ms/step, {steps * B_SERVE / t_dec:.1f} tok/s [{card}]")
     log(f"  sample generation: {out['tokens'][0].tolist()}")
     where_time_goes(prefill_fn, decode_fn, params, prompt, t_pre, t_dec / steps, profile_phase)
-    record_served(cfg, prefill_fn, decode_fn, params, dev)
+    if record:
+        record_served(cfg, prefill_fn, decode_fn, params, dev)
     return counts
 
 
@@ -1089,33 +1213,42 @@ class ProfileLost(Exception):
     """The profiler recorded none of a stage call's kernels."""
 
 
-def profile_groups(run, sessions: int = 1):
+def profile_groups(run, sessions: int = 1, warmup=None):
     """(device busy ms, kernels, {group: ms}, the five costliest kernels of
     group "other" as (name, ms, launches)) of one call of ``run``. The MoE
     stages' and the recurrent mixers' kernels of group "other" move to
     groups of their own (``stage_split``); the five costliest are listed
     before that move. A call of ``run`` that has no side effects may take
     up to ``sessions`` profiler sessions: one that lost every kernel of a
-    stage call (the profiler drops records now and then) is run again."""
+    stage call (the profiler drops records now and then) is run again.
+    ``warmup`` (default: a few hundred tiny kernels) runs in the session's
+    warm-up step, whose records the profiler drops."""
     for i in range(sessions):
         try:
-            return _profile_groups(run)
+            return _profile_groups(run, warmup)
         except ProfileLost as e:
             if i == sessions - 1:
                 fail(str(e))
             log(f"  ({e} in profiler session {i + 1}; again)")
 
 
-def _profile_groups(run):
+def _profile_groups(run, warmup=None):
     from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
     # One warm-up step first, whose records the profiler drops: without it,
     # the first stage call of a session lost kernels (4 of 41 in a decode
-    # step, 18 of 276 in a train step).
+    # step, 18 of 276 in a train step). Late in a long run one tiny kernel
+    # was not enough: a llama4-scout prefill's active step lost its first 73
+    # kernels, its first MoE call's among them, in three sessions running.
     with stage_ranges(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        torch.ones(8, device="cuda").add_(1)
+        if warmup is None:
+            x = torch.ones(8, device="cuda")
+            for _ in range(256):
+                x.add_(1)
+        else:
+            warmup()
         torch.cuda.synchronize()
         prof.step()
         run()
@@ -1155,13 +1288,12 @@ def where_time_goes(prefill_fn, decode_fn, params, prompt, t_pre, t_step, phase)
     from torch.profiler; the idle share is 1 - busy / the unprofiled wall
     time of the same work measured above (the profiler slows the host)."""
     log(f"phase {phase}: device time by kernel group (torch.profiler)")
-    log_profile("prefill", *profile_groups(lambda: prefill_fn(params, prompt), sessions=3),
-                t_pre * 1e3)
+    run = lambda: prefill_fn(params, prompt)  # noqa: E731
+    log_profile("prefill", *profile_groups(run, sessions=3, warmup=run), t_pre * 1e3)
     logits, cache = prefill_fn(params, prompt)
     tok = torch.argmax(logits, dim=-1)[:, None]
-    log_profile("decode step", *profile_groups(lambda: decode_fn(params, cache, {"tokens": tok}),
-                                               sessions=3),
-                t_step * 1e3)
+    run = lambda: decode_fn(params, cache, {"tokens": tok})  # noqa: E731
+    log_profile("decode step", *profile_groups(run, sessions=3, warmup=run), t_step * 1e3)
 
 
 # ------------------------------------------------- phases 7, 13 and 19
@@ -1173,16 +1305,15 @@ def train_parity(dev, arch, phase, **changes):
     """One train step of 2-layer full-width ``arch`` in fp32 on the card
     (kernels) and on the CPU (plain versions), from the same parameters on
     the same batch; the card's step launches each kernel as often as
-    ``train_launches`` derives. For a MoE arch, the routings of both runs
-    agree, and on the card each layer's routing in the backward's recompute
-    (remat) equals its routing in the forward."""
-    from repro_torch.convert import params_from_numpy, params_to_numpy
+    ``train_launches`` derives (returned). For a MoE arch, the routings of
+    both runs agree, and on the card each layer's routing in the backward's
+    recompute (remat) equals its routing in the forward."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels import ops
     from repro_torch.models import zoo
     from repro_torch.optim.adamw import AdamWConfig, init
     from repro_torch.runtime import spmd
-    from repro_torch.tree import leaves_with_paths
+    from repro_torch.tree import leaves_with_paths, tree_map
 
     cfg = two_layers(arch, **changes)
     log(f"phase {phase}: train-step parity, {arch} full width, 2 layers {cfg.block_types()}"
@@ -1190,7 +1321,10 @@ def train_parity(dev, arch, phase, **changes):
     from repro_torch.launch.mesh import make_host_mesh
 
     ocfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
-    raw = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=128, global_batch=2)
+    # A frontend stub's batch holds embeddings in place of tokens, as the
+    # Trainer asks SyntheticLM for them (runtime/trainer.py).
+    raw = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=128, global_batch=2,
+                                 emit_embeddings=cfg.d_model if cfg.frontend else 0)
                       ).batch_at(0)
     out = {}
     gparams = None
@@ -1199,13 +1333,13 @@ def train_parity(dev, arch, phase, **changes):
             model = zoo.build(cfg, dtype=torch.float32, device=device)
             if gparams is None:
                 gparams = model.init(torch.Generator(device=dev).manual_seed(5))
-                host = params_to_numpy(gparams)
+                host = tree_map(lambda t: t.to("cpu", copy=True), gparams)  # before the step
                 params = gparams
             else:
-                params = model.load(params_from_numpy(host, device))
+                params = model.load(host)
             state = spmd.TrainState(params, init(ocfg, params))
-            batch = {k: (torch.from_numpy(v) if k == "loss_mask" else torch.from_numpy(v).long()
-                         ).to(device) for k, v in raw.items()}
+            batch = {k: (torch.from_numpy(v) if k in ("loss_mask", "embeddings")
+                         else torch.from_numpy(v).long()).to(device) for k, v in raw.items()}
             step = spmd.build_train_step(model, ocfg, make_host_mesh(torch.device(device).type))
             ops.reset_launches()
             state, metrics = step(state, batch)
@@ -1260,6 +1394,7 @@ def train_parity(dev, arch, phase, **changes):
     if worst > 3 * ocfg.lr or over:
         fail(f"train parity: updated parameters differ (max {worst}; leaves with more than "
              f"0.1% above 1e-5: {over})")
+    return counts
 
 
 # ------------------------------------------------- phases 8, 14 and 20
@@ -1389,7 +1524,7 @@ def checkpoint_resume():
 # ------------------------------------------------------------ phase 21
 
 DP_MESH = ((2, 2, 1), ("pod", "data", "model"))  # 4 ranks on the one card
-DP_LAYERS = 4           # qwen3-1.7b's 28 cut to 4: the steps' bytes go through gloo
+DP_LAYERS = 2           # qwen3-1.7b's 28 cut to 2: the steps' bytes go through gloo
 DP_STEPS = 2
 DP_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)  # phase 7's
 COLLECTIVES = ("all_gather_into_tensor", "reduce_scatter_tensor", "all_reduce",
@@ -1725,27 +1860,25 @@ TP_TWINS = 3  # phase 23 (c)'s twins of the one-rank baseline (train_baseline)
 
 
 def tp_serve_cfg(arch):
-    """The serving cut of ``arch`` in phases 22-23: the first period of
-    jamba-v0.1-52b (phase 16's) and of xlstm-1.3b (8 of its 48 layers: the
-    whole model's TP prefill moved 24.1 GiB over gloo, ~45 s), the first
-    ``PHI3_LAYERS`` of phi3-medium-14b, the others whole."""
+    """The serving cut of ``arch`` in phases 22-23: the first
+    ``PHI3_LAYERS`` of phi3-medium-14b, the others' 2-layer cut
+    (``two_layers``: one layer of each kind that jamba-v0.1-52b and
+    xlstm-1.3b mix). Deeper cuts (qwen3-1.7b and granite-moe-1b-a400m
+    whole, jamba and xlstm one period) took ~95 s more of gloo walls, which
+    the script's time limit cannot hold beside phase 27."""
     from repro_torch.configs import registry
 
-    cfg = registry.get(arch)
-    if arch in (JAMBA, XLSTM):
-        return dataclasses.replace(cfg, n_layers=8, block_pattern=cfg.block_types()[:8])
     if arch == PHI3:
-        return dataclasses.replace(cfg, n_layers=PHI3_LAYERS)
-    return cfg
+        return dataclasses.replace(registry.get(arch), n_layers=PHI3_LAYERS)
+    return two_layers(arch)
 
 
-def xlstm_period(dtype):
-    """One xlstm-1.3b period (7 mLSTM + 1 sLSTM), phase 23 (c)'s model."""
-    from repro_torch.configs import registry
+def xlstm_two(dtype):
+    """xlstm-1.3b cut to one layer of each kind (mLSTM, sLSTM): phase 20's
+    and phase 23 (c)'s model."""
     from repro_torch.models import zoo
 
-    cfg = registry.get(XLSTM)
-    cfg = dataclasses.replace(cfg, n_layers=8, block_pattern=cfg.block_types()[:8])
+    cfg = two_layers(XLSTM)
     return cfg, zoo.build(cfg, dtype=dtype, device="cuda")
 
 
@@ -1819,7 +1952,7 @@ def tp_collectives(cfg, rows, tokens, pos, elem, M=4):
 def tp_train_collectives(cfg):
     """Collective calls of one streamed train step on (data=2, model=2)
     with remat "dots", per rank, of phase 21's qwen3-1.7b cut (one layer
-    group a layer) or phase 23's xlstm-1.3b period (one group of 7 mLSTM + 1 sLSTM).
+    group a layer) or phase 23's xlstm-1.3b cut (one group of M mLSTM + 1 sLSTM).
     qwen: reduce_from_model sums the lookup's rows and each layer's
     attention and FFN partials (1 + 2L), and each attention partial again
     in the recompute (the FFN's is the group's last: the checkpoint's
@@ -1843,10 +1976,11 @@ def tp_train_collectives(cfg):
               "gather_from_model": 0, "vocab_parallel_nll": 2, "exchange_model": 0,
               "gather_partials": 0}
     else:
-        assert cfg.block_types() == ("mlstm",) * 7 + ("slstm",) and G == 1
-        fwd = 1 + 3 * 7 + 1
-        tp = {"copy_to_model": 4 * 7 + 1 + 1, "reduce_from_model": fwd + fwd - 2,
-              "gather_from_model": 0, "vocab_parallel_nll": 2, "exchange_model": 3 * (7 + 2),
+        M = L - 1
+        assert cfg.block_types() == ("mlstm",) * M + ("slstm",) and G == 1
+        fwd = 1 + 3 * M + 1
+        tp = {"copy_to_model": 4 * M + 1 + 1, "reduce_from_model": fwd + fwd - 2,
+              "gather_from_model": 0, "vocab_parallel_nll": 2, "exchange_model": 3 * (M + 2),
               "gather_partials": 0}
     return tp, {"all_reduce": sum(v for k, v in tp.items() if k != "exchange_model") + 4,
                 "all_gather_into_tensor": 1 + 2 * G, "reduce_scatter_tensor": G + 1,
@@ -2088,7 +2222,7 @@ def tp_train_rank(rank, mesh, phase, base_path, out):
 # shape (c) reports, the arch that (c)'s launches count for, and the fault
 # that (c)'s comparison must catch, or None).
 TP_PHASES = {22: ((DENSE, MOE), dataplane_model, ("stack", "b0", "mixer", "wq"), DENSE, None),
-             23: ((JAMBA, XLSTM, PHI3), xlstm_period, ("stack", "b0", "mixer", "up"), XLSTM,
+             23: ((JAMBA, XLSTM, PHI3), xlstm_two, ("stack", "b0", "mixer", "up"), XLSTM,
                   planted_fault)}
 
 
@@ -2176,8 +2310,8 @@ def tp_train_verdict(steps, leaves, base_metrics, norm_rtol, spread):
 
 def tensor_parallel(card, phase, baseline):
     """Phase 22 (qwen3-1.7b, granite-moe-1b-a400m; (c) phase 21's qwen) or 23
-    (the first period of jamba-v0.1-52b and xlstm-1.3b, 4-layer
-    phi3-medium-14b; (c) one xlstm period): tensor parallelism over "model"
+    (jamba-v0.1-52b, xlstm-1.3b, 4-layer phi3-medium-14b; (c) xlstm's
+    mLSTM + sLSTM cut): tensor parallelism over "model"
     on the card. Four ranks
     (spawned processes, all on cuda:0, one gloo group: NCCL refuses two
     ranks on one device) (a) hold each arch's 2-layer full-width cut (fp32)
@@ -2805,7 +2939,7 @@ def log_op_diff(name, device, fake, real, top=25):
 
 TWINS = (("examples/torch/serve_batched.py", "--device", "cuda"),
          ("examples/torch/train_consensus_ft.py", "--device", "cuda", "--model-scale", "full",
-          "--steps", "120", "--crash-at", "60"))
+          "--steps", "60", "--crash-at", "30"))
 
 
 def twins():
@@ -2822,6 +2956,62 @@ def twins():
         if r.returncode != 0 or not lines or lines[-1] != "OK":
             fail(f"{script} exited {r.returncode} without OK: {r.stderr[-2000:]}")
         log(f"  {script}: OK in {time.perf_counter() - t0:.1f} s")
+
+
+# ------------------------------------------------------------ phase 27
+
+ARCHS27 = (Q3_4B, Q15_4B, PHI3, INTERNVL, MUSICGEN, LLAMA4)
+# (c)'s archs and their changes: the train-path shapes and inputs that no
+# earlier phase covers. llama4-scout without its MoE, as phase 19 runs
+# jamba: two fp32 MoE layers' experts alone are 16 GB, over 64 GB with their
+# gradients and AdamW's state; its top-1 routing is held by (a).
+TRAIN27 = {Q15_4B: {}, MUSICGEN: {}, INTERNVL: {}, LLAMA4: {"moe": None}}
+LLAMA4_LAYERS = 12  # of 48: ~2.08 B parameters a layer, 54 GB in bf16 at 12
+
+
+def served_cfg(arch):
+    """Phase 27 (b)'s config of ``arch``: the registry's at full width and
+    depth, llama4-scout cut to ``LLAMA4_LAYERS`` layers for memory."""
+    from repro_torch.configs import registry
+
+    cfg = registry.get(arch)
+    return dataclasses.replace(cfg, n_layers=LLAMA4_LAYERS) if arch == LLAMA4 else cfg
+
+
+def free_card():
+    """Returns the memory of the models that went out of scope to the card,
+    and logs what is still allocated."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  (card memory allocated: {torch.cuda.memory_allocated() / 2**30:.2f} GiB)")
+
+
+def archs(dev, card, only=ARCHS27):
+    """Phase 27: the six archs that no earlier phase runs on one card, each
+    at full width: (a) 2-layer fp32 serve-path parity card vs CPU (as phase
+    4; the frontend stubs' prefill takes embeddings; llama4's routes equal),
+    (b) the served config (``served_cfg``) in bf16 as phase 5, with exact
+    K1 / K4 / K5 launches and its profile, and not kept for phases 22-23,
+    (c) for ``TRAIN27``'s archs the 2-layer fp32 train-step parity of phase
+    7. Each model is freed before the next; each arch's peak memory and
+    seconds are logged. Returns the launches of (b) and (c) by (arch, part)."""
+    counts = {}
+    for arch in only:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        log(f"phase 27: {arch}")
+        path_parity(dev, arch, 27)
+        free_card()
+        counts[arch, "serve27"] = serve(dev, card, served_cfg(arch), 27, 27, record=False)
+        free_card()
+        if arch in TRAIN27:
+            counts[arch, "train27"] = train_parity(dev, arch, 27, **TRAIN27[arch])
+            free_card()
+        log(f"  {arch}: peak memory allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+            f"GiB, {time.perf_counter() - t0:.1f} s [{card}]")
+    return counts
 
 
 # ------------------------------------------------------------------ main
@@ -2845,8 +3035,8 @@ def main() -> int:
     from repro_torch.configs import registry
 
     timer = Timer(dev)
-    (fwd, fwd_d64, fwd_jamba), (bwd, bwd_d64) = (check_kernels(dev, timer),
-                                                 check_backward(dev, timer))
+    (fwd, fwd_d64, fwd_jamba, fwd_archs), (bwd, bwd_d64) = (check_kernels(dev, timer),
+                                                            check_backward(dev, timer))
     kernels, kernels_d64 = fwd + bwd, fwd_d64 + bwd_d64
     del timer
     counts = {}  # launches on each main path: one serve run, six train steps
@@ -2868,22 +3058,26 @@ def main() -> int:
     period = dataclasses.replace(jamba, n_layers=8, block_pattern=jamba.block_types()[:8])
     counts[JAMBA, "serve"] = serve(dev, card, period, 16, 17)
     torch.cuda.empty_cache()
-    counts[XLSTM, "serve"] = serve(dev, card, registry.get(XLSTM), 18, 18)
+    # xlstm's first period (8 of 48 layers): all 48 took ~31 s with its
+    # one-ulp twin, which the script's time limit cannot hold beside phase 27.
+    xlstm = registry.get(XLSTM)
+    xlstm_first = dataclasses.replace(xlstm, n_layers=8, block_pattern=xlstm.block_types()[:8])
+    counts[XLSTM, "serve"] = serve(dev, card, xlstm_first, 18, 18)
     torch.cuda.empty_cache()
     # jamba's MoE train parity is phase 13's; with it the fp32 state would not fit.
     train_parity(dev, JAMBA, 19, moe=None)
     train_parity(dev, XLSTM, 19)
     torch.cuda.empty_cache()
-    # One period (8 of its 48 layers, 7 mLSTM + 1 sLSTM), two measured steps:
-    # the sLSTM's sequential steps made a full-depth step ~23 s (PERF.md).
-    counts[XLSTM, "train"] = train(dev, card, xlstm_period(torch.bfloat16)[0], 20, measured=2)
+    # One mLSTM and one sLSTM layer, two measured steps: the sLSTM's
+    # sequential steps made a full-depth step ~23 s, a period ~3.8 s (PERF.md).
+    counts[XLSTM, "train"] = train(dev, card, xlstm_two(torch.bfloat16)[0], 20, measured=2)
     torch.cuda.empty_cache()
     baseline = dataplane_baseline()
     counts[DENSE, "dataplane"] = dataplane(card, baseline)
     for arch, c in tensor_parallel(card, 22, baseline).items():
         counts[arch, "tp22"] = c
     shutil.rmtree(baseline[1])
-    baseline = train_baseline(*xlstm_period(torch.float32), twins=TP_TWINS)
+    baseline = train_baseline(*xlstm_two(torch.float32), twins=TP_TWINS)
     for arch, c in tensor_parallel(card, 23, baseline).items():
         counts[arch, "tp23"] = c
     shutil.rmtree(baseline[1])
@@ -2893,12 +3087,15 @@ def main() -> int:
         counts[name.split("/")[0], f"dryrun25 {name}"] = collections.Counter(launches)
         lse_in_path = lse_ms if lse_ms is not None else lse_in_path
     twins()
+    counts.update(archs(dev, card))
     for e in kernels:
         e["launches"] = sum(c[e["name"]] for c in counts.values())
     for e in kernels_d64:
         e["launches"] = sum(c[e["name"]] for (arch, _), c in counts.items() if arch == MOE)
     for e in fwd_jamba:
         e["launches"] = counts[JAMBA, "serve"][e["name"]]
+    for e in fwd_archs:
+        e["launches"] = arch_launches(e, counts)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_device_ms")
     import torch.distributed as dist
@@ -2907,6 +3104,8 @@ def main() -> int:
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels_d64": [{k: e[k] for k in keys} for e in kernels_d64]}))
     print(json.dumps({"kernels_jamba": [{k: e[k] for k in keys} for e in fwd_jamba]}))
+    print(json.dumps({"kernels_archs": [{k: e[k] for k in keys + ("shape", "archs")}
+                                        for e in fwd_archs]}))
     print(card)
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

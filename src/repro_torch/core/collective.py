@@ -139,7 +139,7 @@ def voted_psum(tree: Any, vote: torch.Tensor, group) -> Tuple[Any, torch.Tensor,
         # A copy even for fp32 leaves, so the flat buffer is freed on return.
         out.append(flat[off:off + n].reshape(leaf.shape).to(leaf.dtype, copy=True))
         off += n
-    n_yes = flat[off]
+    n_yes = flat[off].clone()  # a view would keep the whole flat buffer alive
     return unflatten(tree, out), n_yes, n_yes >= fast_quorum_size(m)
 
 

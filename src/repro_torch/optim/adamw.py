@@ -81,12 +81,26 @@ def update_leaves(
     ref = state.master if state.master is not None else params
 
     def one(g, m, v, p):
+        # repro's lines, m_new = b1 m + (1 - b1) g, v_new = b2 v + (1 - b2) g^2,
+        # upd = (m_new / b1c) / (sqrt(v_new / b2c) + eps) and
+        # p_new = p - lr (upd + wd p), op for op (the same roundings), but
+        # each result written into a tensor the step made: at most four
+        # leaf-sized temporaries at once, results included, not six (a
+        # vocabulary's 1 B parameters are 4 GB a temporary in fp32).
         g = g.float() * scale
-        m_new = cfg.b1 * m + (1 - cfg.b1) * g
-        v_new = cfg.b2 * v + (1 - cfg.b2) * torch.square(g)
-        upd = (m_new / b1c) / (torch.sqrt(v_new / b2c) + cfg.eps)
+        m_new = m * cfg.b1
+        m_new += g * (1 - cfg.b1)
+        sq = torch.square(g).mul_(1 - cfg.b2)
+        del g
+        v_new = v * cfg.b2
+        v_new += sq
+        del sq
+        den = (v_new / b2c).sqrt_().add_(cfg.eps)
+        upd = (m_new / b1c).div_(den)
+        del den
         p32 = p.float()
-        p_new = p32 - lr * (upd + cfg.weight_decay * p32)
+        upd += p32 * cfg.weight_decay
+        p_new = torch.sub(p32, upd.mul_(lr), out=upd)
         return m_new, v_new, p_new
 
     for g, m, v, p in zip(leaves(grads), leaves(state.m), leaves(state.v), leaves(ref)):

@@ -314,13 +314,17 @@ def build_train_step(
             masters = leaves(opt.master) if opt.master is not None else [None] * n
             updates = adamw.update_leaves(opt_cfg, unflatten(params, red), opt, params,
                                           grad_norm=grad_norm)
-            for (m_new, v_new, p32_new), p, m, v, master in zip(
-                    updates, local, leaves(opt.m), leaves(opt.v), masters):
+            # One leaf's results at a time: each is dropped before the next
+            # leaf's are made (a zip over ``updates`` would hold the last
+            # ones in its result tuple meanwhile).
+            for p, m, v, master in zip(local, leaves(opt.m), leaves(opt.v), masters):
+                m_new, v_new, p32_new = next(updates)
                 gate(p32_new.to(p.dtype), p)
                 gate(m_new, m)
                 gate(v_new, v)
                 if master is not None:
                     gate(p32_new, master)
+                del m_new, v_new, p32_new
             opt.step.add_(committed.to(opt.step.dtype))
 
             out = {"loss": summed["metrics"]["loss"] / denom,

@@ -48,6 +48,9 @@ def _close(out, want, dtype, rtol=1e-2):
         (1, 256, 4, 1, 128, "float32"),    # MQA
         (2, 128, 2, 2, 128, "bfloat16"),
         (1, 512, 8, 2, 64, "bfloat16"),
+        (1, 256, 10, 2, 64, "float32"),    # GQA group 5 (llama4-scout's)
+        (2, 128, 5, 5, 128, "float32"),    # MHA at D 128 (qwen1.5-4b's)
+        (1, 192, 10, 2, 128, "bfloat16"),  # group 5, D 128
     ],
 )
 def test_flash_attention_forward(B, T, Hq, Hkv, D, dtype):
@@ -91,6 +94,9 @@ def test_flash_attention_offsets_match_sdpa(B, Tq, Tk, Hq, Hkv, D, q_offset, kv_
         (2, 1024, 4, 4, 64, "float32"),
         (2, 1024, 8, 2, 64, "float32"),   # GQA
         (1, 2048, 4, 4, 128, "bfloat16"),
+        (2, 1024, 10, 2, 128, "float32"),  # GQA group 5 (llama4-scout's)
+        (2, 1024, 5, 5, 128, "float32"),   # MHA at D 128 (qwen1.5-4b's)
+        (2, 1024, 8, 8, 64, "bfloat16"),   # MHA at D 64 (musicgen-large's)
     ],
 )
 def test_decode_attention(B, S, Hq, Hkv, D, dtype):
@@ -184,6 +190,8 @@ BWD_CASES = [  # B, T, Hq, Hkv, D, causal
     (1, 77, 4, 2, 64, True),      # ragged T
     (1, 129, 4, 2, 64, True),     # one query past the dQ kernel's 128-query block
     (2, 40, 4, 4, 64, True),      # under one 64-key tile, MHA
+    (1, 96, 10, 2, 64, True),     # GQA group 5 (llama4-scout's)
+    (2, 80, 5, 5, 128, True),     # MHA at D 128 (qwen1.5-4b's)
 ]
 
 

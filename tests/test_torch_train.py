@@ -140,6 +140,61 @@ def test_adamw_matches_jax_step_for_step():
         assert int(ts.step) == int(js.step) == i + 1
 
 
+def _adamw_leaf(cfg, g, m, v, p32, step, grad_norm):
+    """repro's AdamW lines for one leaf, written out as ``repro/optim/adamw.py``
+    has them: (m_new, v_new, p_new)."""
+    lr = adamw.schedule(cfg, step + 1)
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(grad_norm, min=1e-9), max=1.0)
+    b1c, b2c = 1 - cfg.b1 ** (step + 1).float(), 1 - cfg.b2 ** (step + 1).float()
+    g = g.float() * scale
+    m_new = cfg.b1 * m + (1 - cfg.b1) * g
+    v_new = cfg.b2 * v + (1 - cfg.b2) * torch.square(g)
+    upd = (m_new / b1c) / (torch.sqrt(v_new / b2c) + cfg.eps)
+    return m_new, v_new, p32 - lr * (upd + cfg.weight_decay * p32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adamw_leaf_update_holds_four_temporaries(dtype):
+    """The leaf update the train step consumes (``update_leaves``) equals
+    repro's lines bit for bit, and holds at most four leaf-sized fp32
+    temporaries at once beside its three results, counted by the dry-run's
+    live-storage count on fake tensors. The lines as written hold six: on
+    the card, llama4-scout's 2-layer fp32 train step (two 1.03 B-parameter
+    vocabulary leaves, 4.1 GB each) ran out of the 80 GB there."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch.hlo_analysis import ALLOC, Count
+
+    cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    gen = torch.Generator().manual_seed(0)
+    p = {"w": torch.randn(300, 7, generator=gen).to(dtype)}
+    g = {"w": torch.randn(300, 7, generator=gen).to(dtype)}
+    state = adamw.init(cfg, p)._replace(m={"w": torch.randn(300, 7, generator=gen)},
+                                        v={"w": torch.rand(300, 7, generator=gen)},
+                                        step=torch.tensor(3, dtype=torch.int32))
+    norm = torch.tensor(2.5)
+    got = next(adamw.update_leaves(cfg, g, state, p, grad_norm=norm))
+    want = _adamw_leaf(cfg, g["w"], state.m["w"], state.v["w"], state.master["w"], state.step,
+                       norm)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+    n = 1 << 20  # one leaf of 4 MiB in fp32
+    with FakeTensorMode():
+        p = {"w": torch.empty(n, dtype=dtype, device="meta")}
+        g = {"w": torch.empty(n, dtype=dtype, device="meta")}
+        state = adamw.init(cfg, p)
+        norm = torch.empty((), device="meta")
+        count = Count()
+        count.track(p, g, state, norm)
+        base = count.live_bytes
+        with count:
+            out = next(adamw.update_leaves(cfg, g, state, p, grad_norm=norm))
+        leaf = -(-4 * n // ALLOC) * ALLOC
+        assert len(out) == 3
+        assert count.peak_bytes - base <= 4 * leaf + 64 * ALLOC
+
+
 def test_adamw_converges_quadratic():
     cfg = adamw.AdamWConfig(lr=0.1, warmup_steps=0, total_steps=200, weight_decay=0.0,
                             clip_norm=10.0)

@@ -45,7 +45,7 @@ def main() -> int:
     gloo_latency(card, "before phase 23")
     make_host_mesh("cuda")  # the one-rank group of (c)'s baseline, as the train phases leave it
     t0 = time.perf_counter()
-    baseline = cs.train_baseline(*cs.xlstm_period(torch.float32), twins=cs.TP_TWINS)
+    baseline = cs.train_baseline(*cs.xlstm_two(torch.float32), twins=cs.TP_TWINS)
     cs.tensor_parallel(card, 23, baseline)
     cs.log(f"phase 23 took {time.perf_counter() - t0:.1f} s")
     import shutil
