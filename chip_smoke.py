@@ -33,7 +33,11 @@ non-zero exit:
      against autograd of the plain versions and check that no kernel output
      leaves the graph; K4's log-sum-exp variant (o in fp32 and lse, at
      phase 24's slices, kv_len 0 and inside a split; f32 atol 2e-5, bf16
-     2e-2) against the plain variant; then time each kernel at both models' full-width
+     2e-2) against the plain variant; K1 where a query sees no key (per-row
+     q_offset below 0, as on a rank's slice of a cached step over a split
+     cache; ``EMPTY_ROW_CASES``): o exactly 0 and lse exactly NEG_INF
+     there, the rest at atol 2e-5 in fp32, 2e-2 in bf16; then time each
+     kernel at both models' full-width
      shapes (D 128 and D 64) beside its bound, its plain version and one
      PyTorch library call as a yardstick (the port never calls that library
      function): CUDA events around the call (ms) and the kernels' own device
@@ -143,7 +147,10 @@ non-zero exit:
      (data=2, model=2), batch 3 with a 3,070-token prompt and batch 1 with a
      2,046-token prompt, 4 decode steps each fed the one-rank run's greedy
      tokens: logits at rtol/atol 2e-4 of one rank's whole-cache run on the
-     card, exact K1 / K4-variant / K5 launches (the o-only K4 none) and
+     card, and on each mesh batch 3's later steps (``seq_later``: a 3-token
+     step at position 3070, then rows at ``SEQ_ROW_POS``, a device tensor,
+     a 1-token and a 3-token step) at the same tolerance, exact K1 /
+     K4-variant / K5 launches (the o-only K4 none) and
      exact region-operator and collective calls per prefill and decode step
      (``seq_collectives``: a gather of the partials per attention layer of a
      decode step), per rank the walls and peak memory; (b) serve full
@@ -180,7 +187,19 @@ non-zero exit:
      K1 / K4 / K5 launches (no K5 for musicgen's LayerNorm); (c) for
      qwen1.5-4b, musicgen-large, internvl2-2b (an embeddings batch) and
      llama4-scout without its MoE, train-step parity as phase 7 with exact
-     launches; each arch's peak memory and seconds logged.
+     launches; each arch's peak memory and seconds logged;
+  28. a cache position per row, kept on the device (a (B,) tensor): (a)
+     2-layer full-width qwen3-1.7b in fp32, card vs CPU, a cache of 64 with
+     rows at positions 5, 17, 33 and 48, a 1-token and a 3-token step,
+     logits at atol/rtol 2e-3; (b) full qwen3-1.7b in bf16 serves a ragged
+     batch: prompts of 1024, 960, 896, 768, 640, 512, 384 and 256 tokens
+     right-padded to 1024, one prefill, the position set to each row's
+     last prompt token and that token fed again, 32 steps; each row held
+     to itself served alone (batch 1, an int position): greedy tokens
+     equal unless that run's top-2 margin is below the logits' difference,
+     logits rel-L2 2e-2; launches exact (K4 28 a step, as the int path's);
+     one step under ``torch.cuda.set_sync_debug_mode("error")``; the walls,
+     device busy and idle share of a ragged step and of the int step.
 
 The lines before the last are the granite shapes' (D 64), jamba's shapes'
 and phase 27's shapes' kernel timings as one JSON object each, the card's name and power
@@ -344,6 +363,46 @@ def check(name, got, want, dtype, errs, tol=None):
     errs.append(err)
 
 
+# K1 over a rank's slice of a cached step on a split cache: per-row
+# q_offset below 0 (queries before the slice's first key) and kv_len =
+# q_offset + Tq, clamped at 0. B, Tq, Tk, Hq, Hkv, D, q_offset, kv_len.
+EMPTY_ROW_CASES = (
+    (3, 5, 256, HQ, HKV, HD, [-3, 44, -156], [2, 49, 0]),  # a row wholly before the slice
+    (2, 200, 256, 4, 2, 128, [-150, -10], [50, 190]),  # a whole query tile, then part of one
+    (2, 70, 128, 4, 2, 64, [-40, 3], [30, 73]),
+    (2, 61, 80, 4, 2, 16, [-30, -61], [31, 0]),  # D 16 (mma.sync)
+)
+
+
+def check_empty_rows(dev, gen, dtype, errs):
+    """K1 where a query sees no key (``EMPTY_ROW_CASES``): o exactly 0 and
+    lse exactly NEG_INF there (the partial that weighs 0 in
+    ``merge_partials``); elsewhere o and lse against ``ref.attention`` /
+    ``ref.attention_lse`` at atol 2e-5 in fp32, 2e-2 (rtol 1e-2) in bf16."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    tol = (2e-5, 0.0) if dtype == torch.float32 else (2e-2, 1e-2)
+    for B, Tq, Tk, Hq, Hkv, D, qo, kl in EMPTY_ROW_CASES:
+        q = randn(gen, (B, Tq, Hq, D), dtype)
+        k, v = randn(gen, (B, Tk, Hkv, D), dtype), randn(gen, (B, Tk, Hkv, D), dtype)
+        qo_t, kl_t = torch.tensor(qo, device=dev), torch.tensor(kl, device=dev)
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=True, q_offset=qo_t, kv_len=kl_t)
+        t = torch.arange(Tq, device=dev)
+        empty = torch.minimum(qo_t[:, None] + t + 1, kl_t[:, None]) <= 0  # (B, Tq)
+        e_o, e_lse = empty[:, :, None, None].expand_as(o), empty[:, None, :].expand_as(lse)
+        tag = f"B{B} Tq{Tq} Tk{Tk} Hq{Hq} Hkv{Hkv} D{D} q_offset {qo} kv_len {kl}"
+        if not (torch.equal(o[e_o], torch.zeros_like(o[e_o]))
+                and bool((lse[e_lse] == ref.NEG_INF).all())):
+            fail(f"flash_attention {tag}: a query with no key is not o = 0, lse = NEG_INF")
+        want = ref.attention(q, k, v, q_offset=qo_t, kv_len=kl_t)
+        check(f"flash_attention empty rows {tag} ({int(empty.sum())} of {B * Tq} queries "
+              f"see no key: o exactly 0, lse exactly NEG_INF)",
+              o, torch.where(e_o, torch.zeros_like(want), want), dtype, errs, tol)
+        check(f"flash_attention empty rows lse {tag}", lse,
+              ref.attention_lse(q, k, q_offset=qo_t, kv_len=kl_t), dtype, errs, tol)
+
+
 def check_kernels(dev, timer):
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
@@ -418,6 +477,7 @@ def check_kernels(dev, timer):
             check(f"flash_attention lse {tag}", lse,
                   ref.attention_lse(q, k, causal=causal, q_offset=qo_t, kv_len=kl_t), dtype,
                   errs["flash_attention"])
+        check_empty_rows(dev, gen, dtype, errs["flash_attention"])
         for B, S, Hq, Hkv, D, kl in decode_cases:
             q = randn(gen, (B, Hq, D), dtype)
             k, v = randn(gen, (B, S, Hkv, D), dtype), randn(gen, (B, S, Hkv, D), dtype)
@@ -2545,6 +2605,43 @@ def seq_run(prefill_fn, decode_fn, params, prompt, follow):
                                                for t in leaves(cache["layers"]))}
 
 
+# (a)'s later steps over batch 3's prompt: per-row positions at the last
+# prompt slot and the last slots of slices 1 and 0 on (data=4).
+SEQ_ROW_POS = (3069, 2047, 1023)
+
+
+def seq_later(prefill_fn, decode_fn, params, prompt):
+    """Phase 24 (a)'s cached steps past the serve path's: a 3-token step at
+    the end of ``prompt`` (positions 3070-3072, across two slices on
+    data=4), then from a fresh prefill a (B,) device position
+    ``SEQ_ROW_POS``, a 1-token step fed each row's token there and a
+    3-token step. The three steps' logits (fp32, host)."""
+    pos = torch.tensor(SEQ_ROW_POS, dtype=torch.int32, device="cuda")
+    rows = prompt[torch.arange(prompt.shape[0]), list(SEQ_ROW_POS)][:, None]
+    out = []
+    _, cache = prefill_fn(params, {"tokens": prompt})
+    out.append(decode_fn(params, cache, {"tokens": prompt[:, :3]})[0])
+    _, cache = prefill_fn(params, {"tokens": prompt})
+    cache["pos"] = pos
+    for step in (rows, prompt[:, 3:6]):
+        logits, cache = decode_fn(params, cache, {"tokens": step})
+        out.append(logits)
+    return torch.stack([o.float().cpu() for o in out])
+
+
+def seq_later_launches(cfg):
+    """Launches of ``seq_later`` over a split cache: K1 in both prefills
+    and both 3-token steps (with its lse), K4's variant in the 1-token step,
+    K5 in each of the five forwards."""
+    from repro_torch.kernels import ops
+
+    want = {name: 0 for name in ops.KERNELS}
+    A = attn_layers(cfg)
+    want.update(flash_attention=4 * A, decode_attention_lse=A,
+                rmsnorm=5 * rmsnorms_per_forward(cfg))
+    return want
+
+
 def seq_collectives(cfg, rows, tokens, pos, elem, M, heads):
     """Region-operator calls and bytes, and collective calls, of one prefill
     (``tokens`` a row at position 0) or decode step (1 token at ``pos``) per
@@ -2625,6 +2722,14 @@ def seq_rank(rank, world, addr, tmp):
                 res = run(f"a/{B}", fns, params, cfg, B, T, 4, sizes[1], cfg.n_heads // sizes[1])
                 out[f"a/{sizes}/{B}"] = {k: res[k] for k in ("logits", "calls", "cache_bytes",
                                                               "walls", "peak_gib")}
+            ops.reset_launches()
+            out[f"a/{sizes}/later"] = seq_later(*fns, params, feeds["a/3"][0])
+            launches = ops.launch_counts()
+            if launches != seq_later_launches(cfg):
+                raise AssertionError(f"later steps: launches {launches}, want "
+                                     f"{seq_later_launches(cfg)}")
+            for k, v in launches.items():
+                out["launches"][k] = out["launches"].get(k, 0) + v
             del model, params, fns
             torch.cuda.empty_cache()
 
@@ -2679,6 +2784,7 @@ def seq_split(card):
         prompt = seq_prompt(cfg, B, T)
         one[f"a/{B}"] = seq_run(*fns, params, prompt, SEQ_PARITY_STEPS)
         feeds[f"a/{B}"] = (prompt, one[f"a/{B}"]["tokens"][:, :SEQ_PARITY_STEPS])
+    one["later"] = seq_later(*fns, params, feeds["a/3"][0])
     del model, params, fns
     cfg_b = registry.get(DENSE)
     model = zoo.build(cfg_b, dtype=torch.bfloat16, device=dev)
@@ -2729,6 +2835,20 @@ def seq_split(card):
                     f"peak memory allocated {got['peak_gib']:.2f} GiB; cache "
                     f"{got['cache_bytes']} B; " + per_call(got["calls"])
                     + f" (exact, seq_collectives) [{card}]")
+
+    # (a) the later steps: a 3-token step past the prompt, per-row positions.
+    want = one["later"]
+    for sizes, names in SEQ_MESHES:
+        for res in ranks:
+            got = res[f"a/{sizes}/later"]
+            errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+            if not torch.allclose(got, want, rtol=2e-4, atol=2e-4):
+                fail(f"phase 24 (a) later steps on {dict(zip(names, sizes))}: rank "
+                     f"{res['rank']} logits differ from one rank's by {max(errs)}")
+            log(f"  (a) {dict(zip(names, sizes))} batch 3, fp32, rank {res['rank']}: a 3-token "
+                f"step at 3070, then rows at {SEQ_ROW_POS} (a device tensor) a 1-token and a "
+                f"3-token step: max |4 ranks - 1 rank| {', '.join(f'{e:.3e}' for e in errs)} "
+                f"(rtol/atol 2e-4); launches exact (seq_later_launches)")
 
     # (b) decode_32k's length in bf16.
     want = one["b"]
@@ -3014,6 +3134,186 @@ def archs(dev, card, only=ARCHS27):
     return counts
 
 
+# ------------------------------------------------------------ phase 28
+
+# (a): rows of a 2-layer cut at per-row positions; (b): a ragged batch of
+# prompts of these lengths, right-padded to PROMPT, GEN tokens generated.
+ROWS_PARITY_LEN, ROWS_PARITY_POS = 64, (5, 17, 33, 48)
+RAGGED_LENS = (1024, 960, 896, 768, 640, 512, 384, 256)
+
+
+def rows_parity(dev):
+    """Phase 28 (a): 2-layer full-width qwen3-1.7b in fp32, card vs CPU: a
+    prefill of 49 tokens into a cache of 64, the cache's position set to a
+    (B,) tensor ``ROWS_PARITY_POS`` (one per row), then a 1-token and a
+    3-token step; logits at atol/rtol 2e-3 (phase 4's)."""
+    from repro_torch.models import zoo
+    from repro_torch.runtime.serve import build_serve_fns
+    from repro_torch.tree import tree_map
+
+    cfg = two_layers(DENSE)
+    log(f"phase 28: a position per row, kept on the device; (a) qwen3-1.7b full width, 2 "
+        f"layers, float32, card vs CPU: cache {ROWS_PARITY_LEN}, rows at {ROWS_PARITY_POS}, "
+        f"a 1-token and a 3-token step")
+    gpu = zoo.build(cfg, dtype=torch.float32, device=dev)
+    gparams = gpu.init(torch.Generator(device=dev).manual_seed(1))
+    cpu = zoo.build(cfg, dtype=torch.float32, device="cpu")
+    cparams = cpu.load(tree_map(lambda t: t.to("cpu", copy=True), gparams))
+    B, T = len(ROWS_PARITY_POS), max(ROWS_PARITY_POS) + 1
+    tokens = torch.randint(1, cfg.vocab_size, (B, T + 4),
+                           generator=torch.Generator().manual_seed(28))
+    worst = 0.0
+    runs = {}
+    for name, model, params, device in (("card", gpu, gparams, dev), ("cpu", cpu, cparams, "cpu")):
+        prefill_fn, decode_fn = build_serve_fns(model, ROWS_PARITY_LEN, device)
+        _, cache = prefill_fn(params, {"tokens": tokens[:, :T]})
+        cache["pos"] = torch.tensor(ROWS_PARITY_POS, dtype=torch.int32, device=device)
+        out = []
+        for step in (tokens[:, T:T + 1], tokens[:, T + 1:T + 4]):
+            logits, cache = decode_fn(params, cache, {"tokens": step})
+            out.append(logits.float().cpu())
+        runs[name] = out
+        if cache["pos"].tolist() != [p + 4 for p in ROWS_PARITY_POS]:
+            fail(f"phase 28 (a): {name} position {cache['pos'].tolist()} after the steps")
+    for i, (a, b) in enumerate(zip(runs["card"], runs["cpu"])):
+        err = (a - b).abs().max().item()
+        worst = max(worst, err)
+        log(f"  (a) {1 if i == 0 else 3}-token step: max |card - cpu| {err:.3e}")
+        if not torch.allclose(a, b, atol=2e-3, rtol=2e-3):
+            fail(f"phase 28 (a): card and CPU logits differ by {err}")
+    return worst
+
+
+def ragged_prompt(cfg):
+    """8 prompts of ``RAGGED_LENS`` tokens from a seed, right-padded with 0
+    to PROMPT."""
+    tokens = torch.randint(1, cfg.vocab_size, (B_SERVE, PROMPT),
+                           generator=torch.Generator().manual_seed(28))
+    for b, n in enumerate(RAGGED_LENS):
+        tokens[b, n:] = 0
+    return tokens
+
+
+def timed_steps(decode_fn, params, cache, tok, n):
+    """Median wall of ``n`` decode steps from ``cache``, each fed ``tok``
+    (on the device) and ended by a synchronize."""
+    walls = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, cache = decode_fn(params, cache, {"tokens": tok})
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return statistics.median(walls)
+
+
+def ragged(dev, card):
+    """Phase 28 (b): full qwen3-1.7b in bf16 serves a ragged batch, prompts
+    of ``RAGGED_LENS`` tokens right-padded to PROMPT: one prefill of the
+    padded batch, the cache's position set to the (B,) device tensor
+    L_b - 1, and GEN decode steps, the first fed each row's last prompt
+    token again (the slots past L_b stay hidden by kv_len until they are
+    overwritten), the others the row served alone's greedy tokens. Each row
+    is held to itself served alone (batch 1, an int position, its own
+    prompt; ``seq_run``): its greedy tokens equal (or that run's top-2
+    margin below the logits' difference there) and its logits within
+    rel-L2 2e-2; exact launches (K4 28 a step, as on the int path); one
+    more step completes under ``torch.cuda.set_sync_debug_mode("error")``.
+    Then the walls, device busy time and idle share of a ragged step and of
+    the int step of the padded batch (phase 5's), both measured here.
+    Returns the ragged run's launches."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.models import zoo
+    from repro_torch.runtime.serve import build_serve_fns
+
+    cfg = registry.get(DENSE)
+    log(f"  (b) {cfg.name}, {cfg.n_layers} layers, bf16: a ragged batch of {B_SERVE} prompts "
+        f"of {RAGGED_LENS} tokens right-padded to {PROMPT}, {GEN} generated; each row against "
+        f"itself served alone")
+    model = zoo.build(cfg, dtype=torch.bfloat16, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    prefill_fn, decode_fn = build_serve_fns(model, MAX_LEN, dev)
+    prompt = ragged_prompt(cfg)
+    lens = torch.tensor(RAGGED_LENS, device=dev)
+    alone = [seq_run(prefill_fn, decode_fn, params, prompt[b:b + 1, :n], GEN - 1)
+             for b, n in enumerate(RAGGED_LENS)]  # the first also warms cuBLAS up
+    feeds = torch.cat([a["tokens"] for a in alone]).to(dev)  # (B, GEN)
+    last = prompt.to(dev)[torch.arange(B_SERVE, device=dev), lens - 1][:, None]
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    _, cache = prefill_fn(params, {"tokens": prompt})
+    cache["pos"] = (lens - 1).to(torch.int32)
+    logits = []
+    for i in range(GEN):
+        out, cache = decode_fn(params, cache, {"tokens": last if i == 0 else feeds[:, i - 1:i]})
+        logits.append(out)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want = serve_launches(cfg, GEN)
+    if counts != want:
+        fail(f"phase 28 (b): launch counts {counts}, want {want}")
+    log(f"  (b) ragged run: prefill + {GEN} steps in {t_run * 1e3:.1f} ms; launches {counts} "
+        f"(exact: K4 {counts['decode_attention'] // GEN} a step, as the int path's) [{card}]")
+    logits = torch.stack(logits).float().cpu()  # (GEN, B, V)
+    for b, a in enumerate(alone):
+        want_l, got_l = a["logits"][:, 0], logits[:, b]
+        top2 = want_l.topk(2, -1).values
+        margins = (top2[:, 0] - top2[:, 1]).tolist()
+        toks = got_l.argmax(-1).tolist()
+        flips = 0
+        for i, (x, y) in enumerate(zip(toks, a["tokens"][0].tolist())):
+            if x != y:
+                diff = (got_l[i] - want_l[i]).abs().max().item()
+                if not margins[i] < diff:
+                    fail(f"phase 28 (b): row {b} step {i} token {x}, alone {y}, top-2 margin "
+                         f"{margins[i]:.4f} not below the logits' difference {diff:.4f}")
+                flips += 1
+        err = rel_l2(got_l, want_l)
+        if not err <= 2e-2:
+            fail(f"phase 28 (b): row {b} logits rel_l2 {err} against the row served alone")
+        log(f"  (b) row {b} (prompt {RAGGED_LENS[b]}): greedy tokens equal to the row alone "
+            f"{GEN - flips} of {GEN} (the others near-ties), logits rel_l2 {err:.3e} (2e-2)")
+
+    tok = feeds[:, -1:]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, _ = decode_fn(params, cache, {"tokens": tok})
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not torch.isfinite(out).all():
+        fail("phase 28 (b): the step under sync debug mode gave non-finite logits")
+    log(f"  (b) one ragged step (positions {cache['pos'].tolist()}) ran under "
+        f"torch.cuda.set_sync_debug_mode('error'): no host sync")
+
+    # Walls and device time: a ragged step and the int step of the padded
+    # batch at position PROMPT (phase 5's), each from a fresh prefill.
+    for name, pos in (("ragged step", lens - 1), ("int step", None)):
+        _, cache = prefill_fn(params, {"tokens": prompt})
+        if pos is not None:
+            cache["pos"] = pos.to(torch.int32)
+        step = last if pos is not None else feeds[:, :1]
+        wall = timed_steps(decode_fn, params, cache, step, 8)
+        run = lambda: decode_fn(params, cache, {"tokens": step})  # noqa: E731
+        log_profile(f"(b) {name} (median wall of 8)", *profile_groups(run, sessions=3,
+                                                                     warmup=run), wall * 1e3)
+    return counts
+
+
+def cache_pos(dev, card):
+    """Phase 28: ``rows_parity`` then ``ragged``; returns the ragged run's
+    launches."""
+    rows_parity(dev)
+    torch.cuda.empty_cache()
+    counts = ragged(dev, card)
+    torch.cuda.empty_cache()
+    return counts
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -3088,6 +3388,7 @@ def main() -> int:
         lse_in_path = lse_ms if lse_ms is not None else lse_in_path
     twins()
     counts.update(archs(dev, card))
+    counts[DENSE, "ragged28"] = cache_pos(dev, card)
     for e in kernels:
         e["launches"] = sum(c[e["name"]] for c in counts.values())
     for e in kernels_d64:

@@ -446,9 +446,9 @@ def vocab_parallel_nll(tp: ModelParallel, logits: torch.Tensor, labels: torch.Te
 
 
 def gather_partials(seq: SeqSplit, packed: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``packed`` (B, H, D + 1) fp32 partial (o, then lse in
-    the last column) of the "data" group, stacked in rank order:
-    (seq.size, B, H, D + 1), from one all-gather."""
+    """Every rank's ``packed`` (B, ..., H, D + 1) fp32 partial (o, then lse
+    in the last column) of the "data" group, stacked in rank order:
+    (seq.size, B, ..., H, D + 1), from one all-gather."""
     packed = packed.contiguous()
     _count("gather_partials", packed)
     return all_gather_dim(packed[None], 0, seq.group)

@@ -18,7 +18,9 @@
 //   repro.models.layers.chunked_attention: query t of batch b is at position
 //   q_offset[b] + t, and keys at or past kv_len[b] are hidden. The key loop
 //   stops at kv_len and, when causal, at the tile's last query position, so
-//   tiles wholly above the diagonal or past kv_len are never loaded. One
+//   tiles wholly above the diagonal or past kv_len are never loaded. A
+//   query that sees no key (a q_offset below 0, kv_len 0) gets o = 0 and
+//   lse = NEG_INF, the partial that weighs nothing in a merge. One
 //   value for the whole batch comes as a scalar argument (null pointer), so
 //   the caller makes no (B,) tensor for it.
 //
@@ -76,6 +78,13 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
+
+// What a row's exponentials are taken against, from its running max m: a
+// row that has seen no visible key yet (m still NEG_INF: every score masked,
+// as for a query before a cache slice's first key) takes +inf, so each of
+// its masked scores weighs exp(-inf) = 0 rather than exp(0) = 1. Such a row
+// ends with l = 0, o = 0 and lse = NEG_INF, as K4 gives at kv_len 0.
+__device__ __forceinline__ float exp_ref(float m) { return m == kNegInf ? INFINITY : m; }
 constexpr int kBQ = 64;        // query rows per block
 constexpr int kBK = 32;        // keys per tile
 constexpr int kThreads = 128;  // 8 row groups x 16 column lanes
@@ -184,10 +193,11 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
       }
       const float m_new = fmaxf(m[i], half_warp_max(mx));
       const float alpha = expf(m[i] - m_new);
+      const float m_exp = exp_ref(m_new);
       float rs = 0.f;
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
-        const float p = expf(s[i][j] - m_new);
+        const float p = expf(s[i][j] - m_exp);
         rs += p;
         sP[(ty * kRows + i) * (kBK + 1) + tx + 16 * j] = p;
       }
@@ -355,11 +365,12 @@ fwd_kernel_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
       alpha[i] = expf(m[i] - m_new);
       m[i] = m_new;
     }
+    const float m_exp[2] = {exp_ref(m[0]), exp_ref(m[1])};
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[n][e] = expf(s[n][e] - m[e >> 1]);
+        s[n][e] = expf(s[n][e] - m_exp[e >> 1]);
         rs[e >> 1] += s[n][e];
       }
 #pragma unroll
@@ -492,7 +503,7 @@ __device__ __forceinline__ void online_softmax(float (&sc)[kWgBK / 2], float (&m
     const float m_new = fmaxf(m[r], quad_max(fmaxf(mx[r][0], mx[r][1])));
     alpha[r] = ex2(m[r] - m_new);
     m[r] = m_new;
-    neg_m[r] = -m_new;
+    neg_m[r] = -exp_ref(m_new);
     ls[r][0] = l[r] * alpha[r];
     ls[r][1] = 0.f;
   }

@@ -171,11 +171,12 @@ def work(q, k, kl=None, kl_s: Optional[int] = None, lse: bool = False) -> Tuple[
     """(operations, bytes) of one launch, by this call's kv_len: 4 D per
     key and query head, q read, K and V read up to kv_len, o written (in
     q's type; the variant writes o and lse in fp32). The workspace's
-    partials stay in L2 and are not counted."""
+    partials stay in L2 and are not counted. A fake (B,) kv_len (the
+    dry-run's) has no values and counts the whole cache."""
     B, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     kl_s = S if kl_s is None else kl_s
-    keys = sum(min(max(n, 0), S) for n in _per_row(kl, kl_s, B))
+    keys = sum(min(max(n, 0), S) for n in _per_row(kl, kl_s, B, S))
     el = q.element_size()
     qb = B * Hq * D * el
     cache = 2 * keys * Hkv * D * el

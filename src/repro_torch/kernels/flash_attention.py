@@ -150,12 +150,14 @@ def _(q, k, v, qo, kl, qo_s, kl_s, causal, scale):
     return torch.empty_like(q), q.new_empty((B, Hq, Tq), dtype=torch.float32)
 
 
-def _per_row(x: Optional[torch.Tensor], s: int, B: int) -> List[int]:
+def _per_row(x: Optional[torch.Tensor], s: int, B: int, unknown=None) -> List:
     """The B values of a kernel's (tensor, scalar) argument: the scalar for
-    every row, or the tensor's values. A fake tensor has none, and counts
-    as ``s``."""
-    if x is None or is_fake(x):
+    every row, or the tensor's values. A fake tensor (the dry-run's) has no
+    values: each of its rows counts as ``unknown``."""
+    if x is None:
         return [s] * B
+    if is_fake(x):
+        return [unknown] * B
     return [int(n) for n in x.reshape(-1).expand(B).tolist()]
 
 
@@ -177,13 +179,16 @@ def fwd_work(q, k, qo=None, kl=None, qo_s: int = 0, kl_s: Optional[int] = None,
     lengths make the kernel do: 4 D per (query, key) pair and head, Q read
     and O written once, K and V read up to the last key a query sees, lse
     written in fp32. ``chip_smoke.py``'s bound and the dry-run's count
-    (``launch/hlo_analysis.py``) both read it."""
+    (``launch/hlo_analysis.py``) both read it. A fake (B,) kv_len has no
+    values and counts the whole cache (Tk); a fake q_offset puts the
+    queries at the end of their keys, as a cached step places them."""
     B, Tq, Hq, D = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
     kl_s = Tk if kl_s is None else kl_s
     pairs = keys = 0
-    for o_b, l_b in zip(_per_row(qo, qo_s, B), _per_row(kl, kl_s, B)):
-        p, n = _pairs(o_b, Tq, min(l_b, Tk), causal)
+    for o_b, l_b in zip(_per_row(qo, qo_s, B), _per_row(kl, kl_s, B, Tk)):
+        l_b = min(l_b, Tk)
+        p, n = _pairs(max(l_b - Tq, 0) if o_b is None else o_b, Tq, l_b, causal)
         pairs, keys = pairs + p, keys + n
     el = q.element_size()
     return (4 * D * Hq * pairs,

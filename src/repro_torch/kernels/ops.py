@@ -129,6 +129,20 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset=None, kv_len=None)
     return o
 
 
+def flash_attention_lse(q, k, v, *, q_offset=None, kv_len=None):
+    """Causal attention and its log-sum-exp, with no gradient: (o in q's
+    type, lse (B, Hq, Tq) fp32), the partial of a cached step over a slice
+    of a cache that ``ref.merge_partials`` merges (semantics of
+    ``ref.attention`` / ``ref.attention_lse``). A query that sees no key
+    weighs 0 in the merge: lse NEG_INF (K1's o is 0 there, the plain
+    version's the mean of V)."""
+    if q.device.type == "cpu":
+        return (ref.attention(q, k, v, q_offset=q_offset, kv_len=kv_len),
+                ref.attention_lse(q, k, q_offset=q_offset, kv_len=kv_len))
+    return _fa.flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
+                                   q_offset=q_offset, kv_len=kv_len)
+
+
 def decode_attention(q, k, v, kv_len, *, lse: bool = False):
     """q: (B,Hq,D) single token; k, v: (B,S,Hkv,D); kv_len: int or (B,).
     ``lse=True``: (o fp32, lse (B,Hq) fp32), the partial that

@@ -153,13 +153,13 @@ def decode_attention(q, k, v, kv_len, *, scale: Optional[float] = None, lse: boo
 
 def merge_partials(o, lse, out_dtype):
     """Log-sum-exp merge of n partial attentions over disjoint slices of one
-    cache: o (n, B, Hq, D) fp32, each normalised over its slice, and lse
-    (n, B, Hq) -> (B, Hq, D) in ``out_dtype``. ``combine_splits``' rule over
-    whole partials: weights exp(lse_i - max lse) in fp32, cast once. A
-    partial with no key (lse = NEG_INF) weighs 0; where no partial has one,
-    o = 0."""
-    w = torch.exp(lse - torch.amax(lse, dim=0, keepdim=True))               # (n, B, Hq)
-    o = torch.einsum("nbhd,nbh->bhd", o, w) / torch.clamp(w.sum(0), min=1e-30)[..., None]
+    cache: o (n, B, ..., Hq, D) fp32, each normalised over its slice, and
+    lse (n, B, ..., Hq) -> (B, ..., Hq, D) in ``out_dtype`` (the middle dims:
+    a step's T queries, or none). ``combine_splits``' rule over whole
+    partials: weights exp(lse_i - max lse) in fp32, cast once. A partial
+    with no key (lse = NEG_INF) weighs 0; where no partial has one, o = 0."""
+    w = torch.exp(lse - torch.amax(lse, dim=0, keepdim=True))               # (n, B, ..., Hq)
+    o = torch.einsum("n...d,n...->...d", o, w) / torch.clamp(w.sum(0), min=1e-30)[..., None]
     return o.to(out_dtype)
 
 

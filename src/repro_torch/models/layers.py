@@ -36,10 +36,14 @@ A cache split over the sequence (``seq``, a ``collective.SeqSplit`` over
 "data"; None otherwise): each rank's attention cache holds the positions
 [r L, (r + 1) L) of its slice r (L = S / n). A prefill (cache position 0)
 computes K and V of the whole prompt on every rank, attends over them
-through K1 and writes the rank's positions into its cache; a decode step
-writes the new K and V on the rank that owns the position, runs K4's
-log-sum-exp variant over each rank's slice and merges the ranks' partials
-(``collective.gather_partials``, ``kernels/ref.py::merge_partials``).
+through K1 and writes the rank's positions into its cache; any later step
+writes the new K and V on the ranks that own their positions, runs K4's
+log-sum-exp variant (one token) or K1 with its lse (several) over each
+rank's slice and merges the ranks' partials (``collective.gather_partials``,
+``kernels/ref.py::merge_partials``).
+
+A cached step's position is a Python int for the batch or a tensor, one
+per row, kept on the device (``attention``).
 """
 from __future__ import annotations
 
@@ -264,6 +268,41 @@ def _project_qkv(cfg: ArchConfig, p: Params, x: torch.Tensor, positions: torch.T
     return q, k, v
 
 
+def _rows(pos: torch.Tensor, B: int) -> torch.Tensor:
+    """A 0-d or (B,) position tensor as (B,) int64 on its device."""
+    return pos.long().reshape(-1).expand(B)
+
+
+def _write_rows(cache: Params, k: torch.Tensor, v: torch.Tensor, first: torch.Tensor,
+                clamped: bool) -> None:
+    """Writes row b's T new keys and values ``k[b, t]``, ``v[b, t]`` into the
+    cache's K and V at slot ``first[b] + t`` (dim 1), in place and on the
+    device (one scatter each). ``clamped``: every first[b] lies in [0, S - T],
+    so every entry lands in the cache. Otherwise (a rank's slice of a split
+    cache) an entry outside [0, S) is dropped: each row writes a window of
+    min(T, S) distinct slots that holds every entry landing inside, and a
+    slot that takes none keeps its value."""
+    B, T = k.shape[:2]
+    S, trailing = cache["k"].shape[1], cache["k"].shape[2:]
+
+    def spread(i):  # (B, W) -> the (B, W, ...) index over the trailing dims
+        return i.reshape(*i.shape, *([1] * len(trailing))).expand(*i.shape, *trailing)
+
+    if clamped:
+        slots, t = first[:, None] + torch.arange(T, device=first.device), None
+    else:
+        W = min(T, S)
+        slots = first.clamp(0, S - W)[:, None] + torch.arange(W, device=first.device)
+        t = slots - first[:, None]  # (B, W): the entry each slot takes
+    index = spread(slots)
+    for name, new in (("k", k), ("v", v)):
+        dst = cache[name]
+        if t is not None:
+            new = torch.where(spread((t >= 0) & (t < T)), new.gather(1, spread(t.clamp(0, T - 1))),
+                              dst.gather(1, index))
+        dst.scatter_(1, index, new.to(dst.dtype))
+
+
 def attention(
     cfg: ArchConfig,
     p: Params,
@@ -271,25 +310,40 @@ def attention(
     *,
     positions: Optional[torch.Tensor] = None,
     cache: Optional[Params] = None,
-    cache_pos: Optional[int] = None,
+    cache_pos=None,
     tp: Optional[ModelParallel] = None,
     seq: Optional[SeqSplit] = None,
+    kv_end: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Full attention: the uncached forward when cache is None; a cached
     step of T tokens written at ``cache_pos`` otherwise (prefill: T = the
-    prompt, cache_pos 0; decode: T = 1). Under ``tp`` on this rank's heads
-    (``head_split``), the output summed over "model". Under ``seq`` the
-    cache holds this rank's slice of the positions (module docstring); a
-    step of several tokens at cache_pos > 0 raises there.
+    prompt at cache_pos 0; decode: T = 1; any T at any position). Under
+    ``tp`` on this rank's heads (``head_split``), the output summed over
+    "model". Under ``seq`` the cache holds this rank's slice of the
+    positions (module docstring).
 
-    ``cache_pos`` is one int for the whole batch, as ``Model.decode_step``
-    uses it. K and V are written into the cache IN PLACE by slice assignment,
-    which replaces JAX's ``dynamic_update_slice`` plus buffer donation: the
-    returned cache holds the same tensors as the one passed in."""
+    ``cache_pos`` is the write index, as in ``repro``: a Python int for the
+    whole batch, or a 0-d or (B,) integer tensor on the model's device.
+    Row b's queries sit at positions ``cache_pos[b] + t`` and see the keys
+    below ``cache_pos[b] + t + 1``. Its K and V are written from a start
+    clamped to [0, S - T], as JAX's ``dynamic_update_slice`` clamps it; the
+    positions and the keys' bound stay unclamped. The writes go into the
+    cache IN PLACE (a slice assignment for an int, a scatter for a tensor),
+    which replaces JAX's update plus buffer donation: the returned cache
+    holds the same tensors as the one passed in.
+
+    A tensor position is never read on the host. A cache split over the
+    head dim needs a host length for its exchange, ``kv_end`` =
+    max(cache_pos) + T: ``transformer.apply_stack`` reads it once a step
+    and passes it down, and this call raises without it."""
     B, T, _ = x.shape
+    pos = _rows(cache_pos, B) if cache is not None and torch.is_tensor(cache_pos) else None
     if positions is None:
-        start = 0 if cache is None else int(cache_pos)
-        positions = torch.arange(start, start + T, device=x.device)[None, :].expand(B, T)
+        if pos is not None:
+            positions = pos[:, None] + torch.arange(T, device=x.device)
+        else:
+            start = 0 if cache is None else int(cache_pos)
+            positions = torch.arange(start, start + T, device=x.device)[None, :].expand(B, T)
     sp = None
     if tp is not None and p["wq"].shape[-1] < cfg.q_dim:
         sp = head_split(cfg, tp.size, tp.index)
@@ -303,38 +357,50 @@ def attention(
     if sp is not None and sp.pad != (0, 0):
         q = F.pad(q, (0, 0, *sp.pad))
     lo, hi = (0, k.shape[2]) if sp is None or sp.wk == "heads" else sp.kv
+    dims = sp is not None and sp.cache == "dims"
+    if dims and pos is not None and kv_end is None:
+        raise ValueError("a cache split over the head dim with a tensor position needs kv_end")
+
+    def mine(t):  # what the cache holds of K or V: the head-dim slice, or the heads
+        if not dims:
+            return t
+        w = cfg.head_dim // tp.size
+        return t[..., tp.index * w:(tp.index + 1) * w]
 
     if cache is None:
         out = ops.flash_attention(q, k[:, :, lo:hi], v[:, :, lo:hi], causal=True)
         new_cache = None
     elif seq is not None:
-        out = _seq_split_step(cfg, q, k, v, cache, int(cache_pos), tp, sp, seq, lo, hi)
+        out = _seq_split_step(cfg, q, k, v, cache, int(cache_pos) if pos is None else pos,
+                              tp, mine, dims, seq, lo, hi, kv_end)
         new_cache = cache
     else:
-        idx = int(cache_pos)
         k_cache, v_cache = cache["k"], cache["v"]
-        if sp is not None and sp.cache == "dims":  # this rank's head-dim slice of every head
-            w = cfg.head_dim // tp.size
-            k_cache[:, idx:idx + T] = k[..., tp.index * w:(tp.index + 1) * w]
-            v_cache[:, idx:idx + T] = v[..., tp.index * w:(tp.index + 1) * w]
-            if idx:  # the earlier keys and values: this rank's KV heads, brought together
-                k_cache, v_cache = _heads_of_dims(cfg, tp, k_cache, v_cache, idx + T, hi - lo)
-            else:
-                k_cache, v_cache = k[:, :, lo:hi], v[:, :, lo:hi]
+        S = k_cache.shape[1]
+        if pos is None:
+            idx = int(cache_pos)
+            at = min(max(idx, 0), S - T)  # dynamic_update_slice's clamp
+            k_cache[:, at:at + T] = mine(k)
+            v_cache[:, at:at + T] = mine(v)
+            q_off, kv_len, n = idx, idx + T, idx + T
         else:
-            k_cache[:, idx:idx + T] = k
-            v_cache[:, idx:idx + T] = v
-            if (lo, hi) != (0, k_cache.shape[2]):  # a whole cache: the heads this rank reads
-                k_cache = k_cache[:, :, lo:hi]
-                v_cache = v_cache[:, :, lo:hi]
+            _write_rows(cache, mine(k), mine(v), pos.clamp(0, S - T), clamped=True)
+            q_off, kv_len, n = pos, pos + T, kv_end
+        if dims and pos is None and not q_off:  # prefill: the step's own keys, its heads
+            k_cache, v_cache = k[:, :, lo:hi], v[:, :, lo:hi]
+        elif dims:  # the earlier keys and values: this rank's KV heads, brought together
+            k_cache, v_cache = _heads_of_dims(cfg, tp, k_cache, v_cache, n, hi - lo)
+        elif (lo, hi) != (0, k_cache.shape[2]):  # a whole cache: the heads this rank reads
+            k_cache = k_cache[:, :, lo:hi]
+            v_cache = v_cache[:, :, lo:hi]
         k_cache, v_cache = k_cache.contiguous(), v_cache.contiguous()
-        # Causal over the cache: query t (global position idx+t) sees keys
-        # [0, idx+t]; kv_len hides never-written slots.
+        # Causal over the cache: query t (position q_off + t) sees keys
+        # [0, q_off + t]; kv_len hides never-written slots.
         if T == 1:
-            out = ops.decode_attention(q[:, 0], k_cache, v_cache, idx + 1)[:, None]
+            out = ops.decode_attention(q[:, 0], k_cache, v_cache, kv_len)[:, None]
         else:
             out = ops.flash_attention(q, k_cache, v_cache, causal=True,
-                                      q_offset=idx, kv_len=idx + T)
+                                      q_offset=q_off, kv_len=kv_len)
         new_cache = cache
 
     if sp is not None and sp.pad != (0, 0):
@@ -351,49 +417,62 @@ def attention(
 
 
 def _heads_of_dims(cfg: ArchConfig, tp: ModelParallel, k_cache, v_cache, n: int, heads: int):
-    """The first ``n`` positions of this rank's KV heads, brought together
-    from the ranks' head-dim slices of every head (one exchange)."""
+    """The first ``n`` positions (at most the cache's) of this rank's KV
+    heads, brought together from the ranks' head-dim slices of every head
+    (one exchange)."""
     B = k_cache.shape[0]
     kv = torch.cat([k_cache[:, :n], v_cache[:, :n]], 2)
+    n = kv.shape[1]
     kv = exchange_model(tp, kv.reshape(B, n, -1), *_kv_layout(cfg, tp, True))
     return kv.reshape(B, n, 2 * heads, -1).chunk(2, 2)
 
 
-def _seq_split_step(cfg: ArchConfig, q, k, v, cache: Params, idx: int,
-                    tp: Optional[ModelParallel], sp: Optional[HeadSplit], seq: SeqSplit,
-                    lo: int, hi: int) -> torch.Tensor:
+def _seq_split_step(cfg: ArchConfig, q, k, v, cache: Params, idx,
+                    tp: Optional[ModelParallel], mine, dims: bool, seq: SeqSplit,
+                    lo: int, hi: int, kv_end: Optional[int]) -> torch.Tensor:
     """Attention of a cached step over a cache split over the sequence
     (``attention``'s ``seq``): this rank's positions of the new K and V
-    written into its slice, then the output (B, T, Hq_local, D)."""
+    written into its slice, then the output (B, T, Hq_local, D). ``idx`` is
+    an int for the batch or a (B,) tensor, one position per row.
+
+    A prefill (the int 0) attends over the whole prompt's K and V on every
+    rank. Any other step attends over this rank's slice [start, start + L)
+    and merges the ranks' partials (``merge_partials``): K4's log-sum-exp
+    variant for one token, K1 with its lse for several, the queries at
+    ``idx - start`` (negative on a later slice: a query before the slice
+    sees none of its keys, which gives o = 0 and lse = NEG_INF)."""
     B, T = q.shape[:2]
     L, start = seq.length, seq.index * seq.length
-    if idx and T > 1:
-        raise NotImplementedError(
-            "a cached step of several tokens over a cache split over the sequence is not "
-            "ported: decode one token at a time")
-    dims = sp is not None and sp.cache == "dims"
-    w = cfg.head_dim // tp.size if dims else cfg.head_dim
-
-    def mine(x):  # what the cache holds of K or V: the head-dim slice, or the heads
-        return x[..., tp.index * w:(tp.index + 1) * w] if dims else x
-
-    a, b = max(idx, start), min(idx + T, start + L)  # this rank's positions of the step
-    if a < b:
-        cache["k"][:, a - start:b - start] = mine(k[:, a - idx:b - idx])
-        cache["v"][:, a - start:b - start] = mine(v[:, a - idx:b - idx])
-    if idx == 0:  # prefill: the whole prompt's keys, on every rank
-        return ops.flash_attention(q, k[:, :, lo:hi].contiguous(), v[:, :, lo:hi].contiguous(),
-                                   causal=True)
-    n = min(max(idx + 1 - start, 0), L)  # this rank's keys at or before the position
+    S = L * seq.size
+    if isinstance(idx, int):
+        at = min(max(idx, 0), S - T)  # dynamic_update_slice's clamp, over the whole cache
+        a, b = max(at, start), min(at + T, start + L)  # this rank's positions of the step
+        if a < b:
+            cache["k"][:, a - start:b - start] = mine(k[:, a - at:b - at])
+            cache["v"][:, a - start:b - start] = mine(v[:, a - at:b - at])
+        if idx == 0:  # prefill: the whole prompt's keys, on every rank
+            return ops.flash_attention(q, k[:, :, lo:hi].contiguous(),
+                                       v[:, :, lo:hi].contiguous(), causal=True)
+        kv_len = n = min(max(idx + T - start, 0), L)  # this rank's keys the step sees
+    else:
+        _write_rows(cache, mine(k), mine(v), idx.clamp(0, S - T) - start, clamped=False)
+        kv_len = (idx + T - start).clamp(0, L)
+        n = None if kv_end is None else min(max(kv_end - start, 0), L)
     k_cache, v_cache = cache["k"], cache["v"]
     if dims:  # at least one row, so that every exchange has a shape
         k_cache, v_cache = _heads_of_dims(cfg, tp, k_cache, v_cache, max(n, 1), hi - lo)
     elif (lo, hi) != (0, k_cache.shape[2]):
         k_cache, v_cache = k_cache[:, :, lo:hi], v_cache[:, :, lo:hi]
-    o, lse = ops.decode_attention(q[:, 0], k_cache.contiguous(), v_cache.contiguous(), n,
-                                  lse=True)
+    k_cache, v_cache = k_cache.contiguous(), v_cache.contiguous()
+    if T == 1:
+        o, lse = ops.decode_attention(q[:, 0], k_cache, v_cache, kv_len, lse=True)
+        o, lse = o[:, None], lse[:, None]
+    else:
+        o, lse = ops.flash_attention_lse(q, k_cache, v_cache, q_offset=idx - start,
+                                         kv_len=kv_len)
+        o, lse = o.float(), lse.transpose(1, 2)
     parts = gather_partials(seq, torch.cat([o, lse[..., None]], -1))
-    return merge_partials(parts[..., :-1], parts[..., -1], q.dtype)[:, None]
+    return merge_partials(parts[..., :-1], parts[..., -1], q.dtype)
 
 
 def init_attn_cache(cfg: ArchConfig, batch: int, max_len: int, device,

@@ -107,19 +107,20 @@ def apply_block(
     *,
     positions: Optional[torch.Tensor],
     cache: Optional[Params],
-    cache_pos: Optional[int],
+    cache_pos,
     tp: Optional[ModelParallel] = None,
     seq: Optional[SeqSplit] = None,
+    kv_end: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Optional[Params]]:
     """(x, aux, cache): aux holds a MoE block's aux losses (uncached calls
     only) and is empty otherwise. An attention block's cache is updated in
     place and returned; a recurrent block returns its new state (None when
-    ``cache`` is None)."""
+    ``cache`` is None). ``cache_pos`` and ``kv_end``: ``layers.attention``'s."""
     aux: Dict[str, torch.Tensor] = {}
     h = L.apply_norm(cfg, p["norm1"], x)
     if kind == "attn":
         y, new_cache = L.attention(cfg, p["mixer"], h, positions=positions, cache=cache,
-                                   cache_pos=cache_pos, tp=tp, seq=seq)
+                                   cache_pos=cache_pos, tp=tp, seq=seq, kv_end=kv_end)
     elif kind == "mamba":
         y, new_cache = S.apply_mamba(cfg, p["mixer"], h, state=cache, tp=tp)
     elif kind == "mlstm":
@@ -242,7 +243,7 @@ def apply_stack(
     *,
     positions: Optional[torch.Tensor] = None,
     caches: Optional[Params] = None,
-    cache_pos: Optional[int] = None,
+    cache_pos=None,
     train: bool = False,
     gather_fn=None,
     tp: Optional[ModelParallel] = None,
@@ -264,8 +265,18 @@ def apply_stack(
     tp (optional): tensor parallelism over "model"; the group's leaves are
     this rank's "model" slices (after ``gather_fn``'s FSDP gather).
 
-    seq (optional): the attention caches' sequence split (cached calls)."""
+    seq (optional): the attention caches' sequence split (cached calls).
+
+    cache_pos: the cached call's position, a Python int or a 0-d or (B,)
+    tensor on the device (``layers.attention``). A tensor is read on the
+    host only where an attention cache holds a slice of the head dim, once
+    for the whole stack: the length its exchanges need."""
     sig = period_signature(cfg)
+    kv_end = None
+    if torch.is_tensor(cache_pos) and caches is not None and any(
+            kind == "attn" and caches[f"b{j}"]["k"].shape[-1] < cfg.head_dim
+            for j, (kind, _) in enumerate(sig)):
+        kv_end = int(cache_pos.max()) + x.shape[1]  # the step's one host read
     unbound = _map(lambda a: a.unbind(0), stack_params)
 
     def group_body(gp, x, g):
@@ -275,7 +286,8 @@ def apply_stack(
         for j, (kind, is_moe) in enumerate(sig):
             gc = None if caches is None else _map(lambda a: a[g], caches[f"b{j}"])
             x, a, new = apply_block(cfg, kind, is_moe, gp[f"b{j}"], x, positions=positions,
-                                    cache=gc, cache_pos=cache_pos, tp=tp, seq=seq)
+                                    cache=gc, cache_pos=cache_pos, tp=tp, seq=seq,
+                                    kv_end=kv_end)
             if gc is not None and kind != "attn":  # a recurrent block's new state
                 for name, dst in gc.items():
                     dst.copy_(new[name])

@@ -12,9 +12,11 @@ same batch conventions and the same default dtype (bf16):
 still takes ``params`` first, as in JAX, so a converted JAX tree can be
 passed directly; training differentiates such a tree of detached leaves
 with ``torch.autograd.grad`` (``runtime/spmd.py``), as JAX differentiates
-its functional loss. The cache's ``pos`` is a Python int: one position for
-the whole batch, as in ``repro``. Cached steps update the cache in place:
-attention K/V and the recurrent mixers' states alike.
+its functional loss. The cache's ``pos`` is a Python int (one position for
+the whole batch: ``prefill`` returns one) or, as ``repro`` keeps it, an
+integer tensor on the device, 0-d or (B,) with one position per row;
+``decode_step`` advances a tensor on the device. Cached steps update the
+cache in place: attention K/V and the recurrent mixers' states alike.
 
 Tensor parallelism: every method takes ``tp`` (a ``collective.ModelParallel``;
 None on one rank, where the code is the one-rank path) with ``params`` this
@@ -120,7 +122,11 @@ class Model(nn.Module):
         return tp is not None and params["embed"]["tok"].shape[0] < self.cfg.vocab_size
 
     def _embed(self, params: Params, batch: Dict[str, torch.Tensor],
-               pos_offset: int = 0, tp: Optional[ModelParallel] = None) -> torch.Tensor:
+               pos_offset=0, tp: Optional[ModelParallel] = None) -> torch.Tensor:
+        """The input embeddings, plus learned positions from ``pos_offset``
+        (an int or a 0-d tensor). A (B,) offset with learned positions
+        raises: ``repro``'s ``arange(T) + pos_offset`` broadcasts it to a
+        (B, B, d) batch, which it does not serve."""
         if "embeddings" in batch:
             h = batch["embeddings"].to(self.dtype)
         elif self._vocab_split(params, tp):
@@ -132,6 +138,9 @@ class Model(nn.Module):
         else:
             h = L.embed_lookup(params["embed"]["tok"], batch["tokens"])
         if self.cfg.pos == "learned":
+            if torch.is_tensor(pos_offset) and pos_offset.ndim:
+                raise ValueError(f"{self.cfg.name}: learned positions take one position for "
+                                 f"the batch, got a tensor of shape {tuple(pos_offset.shape)}")
             idx = torch.arange(h.shape[1], device=h.device) + pos_offset
             pos = params["embed"]["pos"]
             if tp is not None and pos.shape[-1] < self.cfg.d_model:  # split over d
@@ -227,7 +236,9 @@ class Model(nn.Module):
     def decode_step(self, params: Params, cache: Params, batch: Dict[str, torch.Tensor],
                     tp: Optional[ModelParallel] = None,
                     seq: Optional[SeqSplit] = None) -> Tuple[torch.Tensor, Params]:
-        """One token for every sequence in the batch."""
+        """One step for every sequence in the batch: T tokens each (T = 1
+        when decoding) at ``cache["pos"]``, which advances by T (a tensor on
+        the device)."""
         pos = cache["pos"]
         h = self._embed(params, batch, pos_offset=pos, tp=tp)
         h, _, layers = T.apply_stack(self.cfg, params["stack"], h,

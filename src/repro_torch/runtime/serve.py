@@ -60,7 +60,10 @@ def build_serve_fns(model, max_len: int, device: str | torch.device = "cuda", me
     runs the rows ``sharding.serve_plan`` gives it and returns the full
     (B, V) logits of the global batch, gathered over "model" and over the
     group its rows split on; its cache holds its rows, its KV heads and, in
-    a sequence split, its slice of the positions."""
+    a sequence split, its slice of the positions. A (B,) tensor ``pos`` in
+    the cache (one position per row, ``zoo.Model``) is the global batch's,
+    as the batch is: decode_fn runs the rank's rows of it and returns it
+    advanced, whole."""
     dev = resolve(device)
     if model.device != dev:
         raise ValueError(f"model lives on {model.device}, serve fns asked for {dev}")
@@ -94,7 +97,14 @@ def build_serve_fns(model, max_len: int, device: str | torch.device = "cuda", me
     @torch.no_grad()
     def decode_fn(params, cache, batch):
         batch, plan = local(batch)
+        pos = cache["pos"]
+        split = plan.rows is not None and torch.is_tensor(pos) and pos.ndim == 1
+        if split:  # the rank's rows of the global batch's positions
+            i, n, _ = plan.rows
+            cache["pos"] = pos.chunk(n)[i]
         logits, cache = model.decode_step(params, cache, batch, tp=tp, seq=plan.seq)
+        if split:
+            cache["pos"] = pos + next(iter(batch.values())).shape[1]
         return gathered(logits, plan), cache
 
     return prefill_fn, decode_fn

@@ -278,6 +278,66 @@ def test_work_reads_per_row_lengths():
         assert dec.work(qf, kf, kl, 20)[0] == 4 * 16 * 4 * 40
 
 
+@pytest.mark.parametrize("T", [1, 3])
+def test_cached_step_at_a_position_per_row_traces(T, monkeypatch):
+    """One cached step of reduced qwen3-1.7b (T tokens a row) at a (B,)
+    position, traced on meta tensors and counted as the dry-run counts a
+    cell (``dryrun.Cell`` / ``count_cell``): the kernels' custom ops take
+    the tensor offsets; a fake kv_len has no values, so K4 (T = 1) and K1
+    (T = 3, its queries at the end of their keys) count the whole cache of
+    every row; nothing is built or launched, nothing read on the host."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun
+    from repro_torch.models import zoo
+    from repro_torch.runtime.serve import build_serve_fns
+    from repro_torch.tree import tree_map
+
+    def refused(*a, **k):
+        raise AssertionError("built a kernel or read a value on the host")
+
+    monkeypatch.setattr(build, "library", refused)
+    monkeypatch.setattr(build, "build", refused)
+    cfg = registry.get("qwen3-1.7b", reduced=True)
+    B, S = 3, 64
+    ops.reset_launches()
+    with FakeTensorMode():
+        model = zoo.build(cfg, dtype=dryrun.DTYPE, device="meta")
+        params = model.load(tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"),
+                                     model.param_shapes()))
+        _, decode_fn = build_serve_fns(model, S, "meta")
+        cache = model.init_cache(B, S)
+        cache["pos"] = torch.empty(B, dtype=torch.int32, device="meta")
+        batch = {"tokens": torch.empty((B, T), dtype=torch.int32, device="meta")}
+        monkeypatch.setattr(torch.Tensor, "tolist", refused)
+        monkeypatch.setattr(torch.Tensor, "item", refused)
+        cell = dryrun.Cell(lambda: decode_fn(params, cache, batch),
+                           {"parameters": params, "optimizer": None, "cache": cache["layers"],
+                            "batch": batch})
+        analysis, _, _ = dryrun.count_cell(cell)
+    A, D = cfg.n_layers, cfg.head_dim
+    name = "decode_attention" if T == 1 else "flash_attention"
+    assert analysis["kernel_calls"][name] == A
+    assert analysis["kernel_calls"]["rmsnorm"] == cs.rmsnorms_per_forward(cfg)
+    assert set(analysis["kernel_calls"]) == {name, "rmsnorm"}
+    assert ops.launch_counts() == {n: 0 for n in ops.KERNELS}
+    with FakeTensorMode():  # one layer's launch alone, at the same shapes
+        q = torch.empty(B, T, cfg.n_heads, D, dtype=dryrun.DTYPE, device="meta")
+        k = torch.empty(B, S, cfg.n_kv_heads, D, dtype=dryrun.DTYPE, device="meta")
+        offsets = torch.empty(B, dtype=torch.int32, device="meta")
+        one = H.Count()
+        with one:
+            if T == 1:
+                dec.decode_attention(q[:, 0], k, k, offsets)
+            else:
+                fa.flash_attention_fwd(q, k, k, q_offset=offsets, kv_len=offsets)
+    if T == 1:  # every row reads the whole cache
+        assert one.flops == 4 * D * cfg.n_heads * B * S
+    else:  # the queries at S - T .. S - 1, each seeing the keys up to its own
+        assert one.flops == 4 * D * cfg.n_heads * B * (T * (S - T) + T * (T + 1) // 2)
+    assert one.kernel_calls == {name: 1}
+
+
 # ------------------------------------------------ parameters and their shards
 
 MESHES = {"single": ((16, 16), ("data", "model")), "multi": ((2, 16, 16), ("pod", "data", "model"))}

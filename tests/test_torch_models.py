@@ -71,9 +71,12 @@ def test_norms_and_rope_match(pair):
         _np(JL.apply_rope(jnp.asarray(xh), jnp.asarray(pos), cfg.rope_theta)), **TOL)
 
 
-@pytest.mark.parametrize("T,cache_pos", [(6, 0), (3, 4), (1, 9)])
+@pytest.mark.parametrize("T,cache_pos", [(6, 0), (3, 4), (1, 9), (3, [4, 0]), (1, [9, 2]),
+                                         (3, [10, 11])])
 def test_cached_attention_matches(pair, T, cache_pos):
-    """One cached attention step of T tokens at cache_pos: output and cache."""
+    """One cached attention step of T tokens at cache_pos (an int, or a
+    list that goes as a (B,) tensor: one position per row, the last case's
+    second row clamped at the cache's end): output and cache."""
     _, jparams, model, params = pair
     cfg = model.cfg
     jp = jax.tree_util.tree_map(lambda a: a[0], jparams["stack"]["b0"]["mixer"])
@@ -86,7 +89,8 @@ def test_cached_attention_matches(pair, T, cache_pos):
                           cache={"k": jnp.asarray(ck), "v": jnp.asarray(cv)},
                           cache_pos=jnp.asarray(cache_pos, jnp.int32))
     cache = {"k": torch.from_numpy(ck.copy()), "v": torch.from_numpy(cv.copy())}
-    y, c = L.attention(cfg, p, torch.from_numpy(x), cache=cache, cache_pos=cache_pos)
+    cp = torch.tensor(cache_pos) if isinstance(cache_pos, list) else cache_pos
+    y, c = L.attention(cfg, p, torch.from_numpy(x), cache=cache, cache_pos=cp)
     np.testing.assert_allclose(_np(y), _np(jy), **TOL)
     for name in ("k", "v"):
         assert c[name] is cache[name]  # written in place

@@ -20,7 +20,12 @@ on gloo ranks against ``repro``'s one-device ``Model.prefill`` /
       batch 3 over a cache of 30, which does not divide "data": whole
 
 Prompts of 8 tokens and 4 decode steps: the ranks past position 8 start
-empty, and decode crosses into the next slice.
+empty, and decode crosses into the next slice. Then, for the cases of
+``LATER``, cached steps that the serve path does not take, held to
+``repro``'s one-device ``decode_step`` on the same steps and to one rank's
+whole cache (the port with no mesh) at the same tolerance: 3-token steps at
+positions 8 and 11 (across slices), and per-row positions (a (B,) tensor of
+the global batch: 7, 3, 5) for a 1-token and a 3-token step.
 """
 import dataclasses
 import os
@@ -60,6 +65,12 @@ CASES = {
     "qwen_b1_d4": ("qwen", 1, 16, "d4"),
     "qwen_b3_s30_d4": ("qwen", 3, 30, "d4"),
 }
+# The cases that also run ``_later_steps``: the split over 2 and 4 slices,
+# with the KV heads or their head dim over "model", a whole cache, and rows
+# split over "data" (each rank runs its rows of the (B,) position).
+LATER = ("qwen_b3_d2", "qwen_b3_d2m2", "headdim_b3_d2m2", "qwen_b1_d4", "qwen_b3_s30_d4",
+         "qwen_b2_p2d2")
+ROW_POS = (7, 3, 5)
 WORLDS = {2: [c for c in CASES if CASES[c][3] == "d2"],
           4: [c for c in CASES if CASES[c][3] != "d2"]}
 
@@ -326,7 +337,7 @@ def _jax_side():
     from repro.configs import registry as jregistry
     from repro.models import zoo as jzoo
 
-    init, ref, models = {}, {}, {}
+    init, ref, later, models = {}, {}, {}, {}
     for arch in ARCHS:
         model = jzoo.build(_cfg(jregistry, arch), dtype=jnp.float32)
         params = model.init(jax.random.PRNGKey(0))
@@ -345,7 +356,53 @@ def _jax_side():
                 steps.append(out)
             runs[arch, B, S] = np.stack([np.asarray(s) for s in steps])
         ref[case] = runs[arch, B, S]
-    return init, ref
+        if case in LATER:
+            if (arch, B, S, "later") not in runs:
+                model, params = models[arch]
+                runs[arch, B, S, "later"] = _jax_later_steps(
+                    model, params, jnp.asarray(_tokens(model.cfg.vocab_size, B)), S)
+            later[case] = runs[arch, B, S, "later"]
+    return init, ref, later
+
+
+def _jax_later_steps(model, params, tokens, S):
+    """``_later_steps`` through ``repro``'s one-device ``prefill`` and
+    ``decode_step``, its position a (B,) int32 array for the rows."""
+    import jax.numpy as jnp
+
+    B = tokens.shape[0]
+    out = {"multi": [], "rows": []}
+    _, cache = model.prefill(params, {"tokens": tokens[:, :PROMPT]}, S)
+    for step in (tokens[:, PROMPT:PROMPT + 3], tokens[:, 1:4]):
+        logits, cache = model.decode_step(params, cache, {"tokens": step})
+        out["multi"].append(np.asarray(logits))
+    _, cache = model.prefill(params, {"tokens": tokens[:, :PROMPT]}, S)
+    cache = {**cache, "pos": jnp.asarray(ROW_POS[:B], jnp.int32)}
+    for step in (tokens[:, PROMPT:PROMPT + 1], tokens[:, PROMPT + 1:PROMPT + 4]):
+        logits, cache = model.decode_step(params, cache, {"tokens": step})
+        out["rows"].append(np.asarray(logits))
+    return out
+
+
+def _later_steps(fns, params, tokens):
+    """Logits of cached steps past the prompt: (multi) 3-token steps at
+    positions 8 and 11; (rows) from a fresh prefill, the cache's position
+    set to one per row (``ROW_POS``, a tensor), a 1-token then a 3-token
+    step."""
+    prefill_fn, decode_fn = fns
+    B = tokens.shape[0]
+    out = {"multi": [], "rows": []}
+    _, cache = prefill_fn(params, {"tokens": tokens[:, :PROMPT]})
+    for step in (tokens[:, PROMPT:PROMPT + 3], tokens[:, 1:4]):
+        logits, cache = decode_fn(params, cache, {"tokens": step})
+        out["multi"].append(logits)
+    _, cache = prefill_fn(params, {"tokens": tokens[:, :PROMPT]})
+    cache["pos"] = torch.tensor(ROW_POS[:B])
+    for step in (tokens[:, PROMPT:PROMPT + 1], tokens[:, PROMPT + 1:PROMPT + 4]):
+        logits, cache = decode_fn(params, cache, {"tokens": step})
+        out["rows"].append(logits)
+    out["pos"] = cache["pos"]
+    return out
 
 
 def _rank_main(rank, world, init_file, init_path, out_dir):
@@ -392,11 +449,12 @@ def _rank_main(rank, world, init_file, init_path, out_dir):
                          "collectives": collectives,
                          "cache": {k: tuple(v.shape) for k, v in cache["layers"]["b0"].items()},
                          "coords": {a: mesh.axis_index(a) for a in mesh.axis_names}}
-            if case == "qwen_b3_d2":  # (v): a cached step of two tokens over the split
-                try:
-                    decode_fn(local, cache, {"tokens": tokens[:, :2]})
-                except NotImplementedError as e:
-                    out["multi_token"] = str(e)
+            if case in LATER:  # (v): later steps here and on one rank's whole cache
+                one = zoo.build(cfg, dtype=torch.float32, device="cpu")
+                whole = one.load(params_from_numpy(_nested(init, arch), "cpu"))
+                out[case]["later"] = _later_steps((prefill_fn, decode_fn), local, tokens)
+                out[case]["later_one"] = _later_steps(build_serve_fns(one, S, "cpu"), whole,
+                                                      tokens)
         torch.save(out, os.path.join(out_dir, f"rank{world}_{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -407,7 +465,7 @@ def runs(tmp_path_factory):
     import torch.multiprocessing as mp
 
     tmp = tmp_path_factory.mktemp("seqsplit")
-    init, ref = _jax_side()
+    init, ref, later = _jax_side()
     np.savez(tmp / "init.npz", **init)
     ranks = {}
     for world in WORLDS:
@@ -415,7 +473,7 @@ def runs(tmp_path_factory):
                                    str(tmp)), nprocs=world)
         ranks[world] = [torch.load(tmp / f"rank{world}_{r}.pt", weights_only=False)
                         for r in range(world)]
-    return ranks, ref
+    return ranks, ref, later
 
 
 def _world(case):
@@ -427,7 +485,7 @@ def test_serve_matches_repro(runs, case):
     """Prefill and four decode steps: every rank returns the full (B, V)
     logits, equal on every rank and within 2e-4 of repro's one-device
     logits."""
-    ranks, ref = runs
+    ranks, ref, _ = runs
     outs = [r[case]["logits"] for r in ranks[_world(case)]]
     for got in outs[1:]:
         assert torch.equal(got, outs[0]), case
@@ -441,7 +499,7 @@ def test_cache_layout_per_case(runs):
     row and every position; a cache of 30 on 4 data ranks stays whole; the
     recurrent states hold every row; under "model" the KV heads (qwen) or
     their dims (the head-dim split) split as before."""
-    ranks, _ = runs
+    ranks = runs[0]
     k = {case: ranks[_world(case)][0][case]["cache"] for case in CASES}
     assert k["qwen_b1_d2"]["k"] == (2, 1, 8, 2, 16)
     assert k["qwen_b3_d2"]["k"] == (2, 3, 8, 2, 16)
@@ -463,7 +521,7 @@ def test_gathered_partials_are_counted(runs):
     from repro_torch.configs import registry
     from repro_torch.models import layers as L
 
-    ranks, _ = runs
+    ranks = runs[0]
     for case, (arch, B, S, mesh_name) in CASES.items():
         cfg = _cfg(registry, arch)
         (sizes, names) = MESHES[mesh_name]
@@ -487,12 +545,40 @@ def test_gathered_partials_are_counted(runs):
     assert ranks[4][0]["headdim_b3_d2m2"]["counts"][1]["gather_partials"][1] == 2 * 3 * 8 * 9 * 4
 
 
-def test_multi_token_step_over_a_split_cache_raises(runs):
-    """(v) A cached step of several tokens at a position past 0 over a cache
-    split over the sequence is not ported: it raises on every rank before
-    any collective."""
-    for out in runs[0][2]:
-        assert "several tokens" in out["multi_token"], out.get("multi_token")
+@pytest.mark.parametrize("case", LATER)
+def test_multi_token_steps_match_one_rank(runs, case):
+    """(v) Two 3-token cached steps past the prompt (positions 8-10, then
+    11-13, across the slices' bounds): every rank's logits equal, within
+    2e-4 of ``repro``'s one-device steps and of one rank's whole cache."""
+    ranks, _, ref = runs
+    outs = [r[case]["later"]["multi"] for r in ranks[_world(case)]]
+    for got in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(got, outs[0])), case
+    one = ranks[_world(case)][0][case]["later_one"]["multi"]
+    assert len(outs[0]) == len(one) == len(ref[case]["multi"]) == 2
+    for got, one_, ref_ in zip(outs[0], one, ref[case]["multi"]):
+        assert got.shape == ref_.shape
+        np.testing.assert_allclose(got.numpy(), ref_, err_msg=case, **TOL)
+        np.testing.assert_allclose(got.numpy(), one_.numpy(), err_msg=case, **TOL)
+
+
+@pytest.mark.parametrize("case", LATER)
+def test_per_row_positions_match_one_rank(runs, case):
+    """(v) A (B,) position of the global batch, one per row (7, 3, 5: rows
+    in different slices, or on different ranks), then a 1-token and a
+    3-token step: logits within 2e-4 of ``repro``'s one-device steps at the
+    same positions and of one rank's whole cache on every rank, the global
+    position advanced on the tensor."""
+    ranks, _, ref = runs
+    B = CASES[case][1]
+    for r in ranks[_world(case)]:
+        later, one = r[case]["later"], r[case]["later_one"]
+        assert len(later["rows"]) == len(one["rows"]) == len(ref[case]["rows"]) == 2
+        for got, one_, ref_ in zip(later["rows"], one["rows"], ref[case]["rows"]):
+            assert got.shape == ref_.shape
+            np.testing.assert_allclose(got.numpy(), ref_, err_msg=case, **TOL)
+            np.testing.assert_allclose(got.numpy(), one_.numpy(), err_msg=case, **TOL)
+        assert later["pos"].tolist() == [p + 4 for p in ROW_POS[:B]]
 
 
 def test_seq_split_collectives_equal_the_dry_run(runs):

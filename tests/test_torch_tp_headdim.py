@@ -14,7 +14,10 @@ on the same parameters (initialised in JAX, ``convert.params_from_numpy``).
               phi3's 40 heads on 16 ranks)
 
 Each rank's cache holds every KV head and 1 / 4 of its head dim, as
-``sharding.cache_spec`` places it. Tolerances: logits rtol/atol 2e-4
+``sharding.cache_spec`` places it. For qwen also a decode step at a (B,)
+position (``ROW_POS``, one per row) after the prompt, against ``repro``'s
+at the same positions: its exchanges move the first max(pos) + 1
+positions. Tolerances: logits rtol/atol 2e-4
 (tests/test_models_smoke.py), gradients rtol 1e-2 / atol 5e-4
 (tests/test_kernels.py).
 """
@@ -33,6 +36,7 @@ TOL = dict(rtol=2e-4, atol=2e-4)
 GRAD_TOL = dict(rtol=1e-2, atol=5e-4)
 WORLD = 4
 MAX_LEN, PROMPT, DECODES = 16, 9, 3
+ROW_POS = (8, 5)  # the per-row step's positions (qwen)
 CASES = {
     "qwen": ("qwen3-1.7b", {}),
     "phi3": ("phi3-medium-14b", {}),
@@ -69,6 +73,11 @@ def _jax_side():
                                            {"tokens": tokens[:, PROMPT + i:PROMPT + i + 1]})
             steps.append(out)
         ref[f"{case}/logits"] = np.stack([np.asarray(s) for s in steps])
+        if case == "qwen":
+            _, cache = model.prefill(params, {"tokens": tokens[:, :PROMPT]}, MAX_LEN)
+            cache = {**cache, "pos": jnp.asarray(ROW_POS, jnp.int32)}
+            out, _ = model.decode_step(params, cache, {"tokens": tokens[:, PROMPT:PROMPT + 1]})
+            ref["rows/logits"] = np.asarray(out)
         batch = {"tokens": tokens, "labels": jnp.roll(tokens, -1, axis=1)}
         (loss, _), grads = jax.value_and_grad(model.loss, has_aux=True)(params, batch)
         ref[f"{case}/loss"] = float(loss)
@@ -114,6 +123,13 @@ def _rank_main(rank, init_file, init_path, out_dir):
             out[f"{case}/decode_counts"] = C.tp_counts()
             out[f"{case}/logits"] = torch.stack(steps)
             out[f"{case}/cache"] = tuple(cache["layers"]["b0"]["k"].shape)
+            if case == "qwen":
+                _, cache = prefill_fn(local, {"tokens": tokens[:, :PROMPT]})
+                cache["pos"] = torch.tensor(ROW_POS)
+                C.reset_tp_counts()
+                logits, cache = decode_fn(local, cache, {"tokens": tokens[:, PROMPT:PROMPT + 1]})
+                out["rows/counts"] = C.tp_counts()
+                out["rows/logits"] = logits
             specs = shd.tree_param_specs(model.param_shapes(), mesh)
             items = leaves_with_paths(full)
             mine = [shd.shard_leaf(p, s, mesh).detach().clone().requires_grad_(True)
@@ -198,6 +214,23 @@ def test_head_dim_split_cache_and_collectives(runs, case):
                     "exchange_model": per_layer * cfg.n_layers, "gather_partials": 0}
             calls = {k: v[0] for k, v in out[f"{case}/{phase}_counts"].items()}
             assert calls == want, (case, phase, calls)
+
+
+def test_per_row_position_on_the_head_dim_cache(runs):
+    """qwen's decode step at a (B,) position (8, 5) on the head-dim cache:
+    logits within 2e-4 of ``repro``'s at the same positions on every rank,
+    and each region operator's calls and bytes those of
+    ``chip_smoke.tp_collectives`` at max(pos) + 1 (the exchanges bring the
+    first 9 positions of the heads together)."""
+    import chip_smoke as cs
+    from repro_torch.configs import registry
+
+    ranks, ref = runs
+    cfg = _cfg(registry, "qwen")
+    want = cs.tp_collectives(cfg, 2, 1, max(ROW_POS), 4, M=WORLD)[0]
+    for out in ranks:
+        np.testing.assert_allclose(out["rows/logits"].numpy(), ref["rows/logits"], **TOL)
+        assert out["rows/counts"] == want
 
 
 def test_misaligned_groups_pad_to_whole_groups():
