@@ -82,8 +82,8 @@ non-zero exit:
   16. serve one full period of jamba-v0.1-52b (7 mamba + 1 attn, MoE on the
      odd layers; bf16, 13.3 B parameters) as phase 5, K1 / K4 / K5 launch
      counts derived from the layer kinds;
-  17. its profile, the mixers' kernels in a group ``ssm.mamba`` (profiler
-     ranges around the mixer, as around the MoE stages);
+  17. its profile, the mixers' kernels in a group ``ssm.mamba`` (the
+     program's span around the mixer, as around the MoE stages);
   18. serve the first period of xlstm-1.3b (8 of its 48 layers: 7 mLSTM +
      1 sLSTM, bf16), and its profile with groups ``ssm.mlstm`` and
      ``ssm.slstm``;
@@ -849,9 +849,10 @@ def backward_entries(gen, hd):
 
 # ------------------------------------ the MoE layer and the mixers, observed
 
-MOE_STAGES = ("_gates", "_slots", "_dispatch", "_combine")
-SSM_MIXERS = ("apply_mamba", "apply_mlstm", "apply_slstm")
-RANGES = ("moe.", "ssm.")  # the profiler ranges that stage_ranges opens
+# The program's spans (``repro_torch/tracing.py``) that ``stage_split`` reads:
+# the MoE layer's four stages and the three recurrent mixers.
+RANGES = ("moe.gates", "moe.slots", "moe.dispatch", "moe.combine", "ssm.mamba", "ssm.mlstm",
+          "ssm.slstm")
 
 
 @contextlib.contextmanager
@@ -901,36 +902,6 @@ def compare_routes(card, cpu, top_k, what):
              f"CPU; the probability gaps of the tokens whose choices differ: {flipped[:8]}")
 
 
-@contextlib.contextmanager
-def stage_ranges():
-    """While open, each stage of the MoE layer (``moe._gates``, ``_slots``,
-    ``_dispatch``, ``_combine``) runs inside a profiler range
-    ``moe.<stage>``, and each recurrent mixer (``ssm.apply_mamba``,
-    ``apply_mlstm``, ``apply_slstm``) inside ``ssm.mamba``, ``ssm.mlstm`` or
-    ``ssm.slstm``, so that ``stage_split`` can find their kernels."""
-    from torch.profiler import record_function
-
-    from repro_torch.models import moe, ssm
-
-    wrapped = [(moe, name, f"moe.{name.strip('_')}") for name in MOE_STAGES]
-    wrapped += [(ssm, name, f"ssm.{name.split('_')[1]}") for name in SSM_MIXERS]
-    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in wrapped]
-
-    def ranged(label, fn):
-        def run(*args, **kwargs):
-            with record_function(label):
-                return fn(*args, **kwargs)
-        return run
-
-    for (mod, name, label), (_, _, fn) in zip(wrapped, saved):
-        setattr(mod, name, ranged(label, fn))
-    try:
-        yield
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
-
-
 def group_of(kernel: str) -> str:
     return next((g for g, subs in KERNEL_GROUPS if any(s in kernel for s in subs)), "other")
 
@@ -947,8 +918,8 @@ def read_profile(prof):
            host events) that launch them; the profiler's own "Activity
            Buffer Request" events can share an operator's id and are left
            out, so that no kernel is counted twice;
-      ranges: [(thread, start ns, end ns, name)] of the ranges that
-           ``stage_ranges`` opened."""
+      ranges: [(thread, start ns, end ns, name)] of the program's spans
+           named in ``RANGES``."""
     kernels, ops, ranges = [], {}, []
     for e in prof.profiler.kineto_results.events():
         name = e.name()
@@ -1301,8 +1272,11 @@ def _profile_groups(run, warmup=None):
     # step, 18 of 276 in a train step). Late in a long run one tiny kernel
     # was not enough: a llama4-scout prefill's active step lost its first 73
     # kernels, its first MoE call's among them, in three sessions running.
-    with stage_ranges(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+    # The program's spans open the profiler ranges that ``stage_split``
+    # reads: any span does while a profiler records (``repro_torch/
+    # tracing.py``), with the program's tracing off, so no counter runs.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
         if warmup is None:
             x = torch.ones(8, device="cuda")
             for _ in range(256):

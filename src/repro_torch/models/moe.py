@@ -14,10 +14,15 @@ which the "dots" remat policy of ``transformer.apply_stack`` saves; routing
 is recomputed in the backward from the saved router logits, and recomputes
 identically (softmax, top-k and cumsum are deterministic).
 
-A call runs four stages, one function each, so that a profile can put
-each stage's kernels under its name: ``_gates`` (router logits, softmax,
-top-k), ``_slots`` (the slot cumsum and the capacity mask), ``_dispatch``
-and ``_combine``; the expert products run between the last two.
+A call runs four stages, one function each: ``_gates`` (router logits,
+softmax, top-k), ``_slots`` (the slot cumsum and the capacity mask),
+``_dispatch`` and ``_combine``; the expert products run between the last
+two. Each stage and the expert products run inside a span
+(``repro_torch/tracing.py``: ``moe.gates``, ``moe.slots``,
+``moe.dispatch``, ``moe.experts``, ``moe.combine``), and the first forward
+counts the (token, choice) pairs routed and those dropped past capacity
+(``moe.choices``, ``moe.dropped``; the rematerialised forward recomputes
+the same routing and is not counted again).
 
 Auxiliary losses (Switch Transformer): the load-balance loss on the top-1
 choice fractions and the router z-loss, returned to the caller.
@@ -39,6 +44,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.collective import ModelParallel, copy_to_model, reduce_from_model
 from repro_torch.models.layers import _dense_init
@@ -90,8 +96,10 @@ class Routing(NamedTuple):
 def route(cfg: ArchConfig, router: torch.Tensor, xt: torch.Tensor, C: int) -> Routing:
     """Routing of S tokens ``xt`` (S, d) over capacity C: the gates, then
     the slots."""
-    logits, probs, gates, expert_idx = _gates(cfg, router, xt)
-    choice, pos, keep = _slots(cfg, expert_idx, C)
+    with tracing.span("moe.gates"):
+        logits, probs, gates, expert_idx = _gates(cfg, router, xt)
+    with tracing.span("moe.slots"):
+        choice, pos, keep = _slots(cfg, expert_idx, C)
     return Routing(logits, probs, gates * keep.to(gates.dtype), expert_idx, choice, pos, keep)
 
 
@@ -183,6 +191,9 @@ def apply_moe(cfg: ArchConfig, p: Params, x: torch.Tensor, with_aux: bool = True
     C = _capacity(cfg, B * T)
     xt = x.reshape(B * T, d)
     r = route(cfg, p["router"], xt, C)
+    if tracing.counting():
+        tracing.count("moe.choices", r.keep.numel())
+        tracing.count("moe.dropped", r.keep.numel() - r.keep.sum())
     n_local = p["w_up_e"].shape[-3]
     if tp is None or n_local == m.n_experts:
         tp, experts = None, None
@@ -190,12 +201,16 @@ def apply_moe(cfg: ArchConfig, p: Params, x: torch.Tensor, with_aux: bool = True
         experts = (tp.index * n_local, n_local)
         xt, gates = copy_to_model(tp, xt, r.gates)
         r = r._replace(gates=gates)
-    xe, how = _dispatch(cfg, r, xt, C, experts)
-    if cfg.activation == "swiglu":
-        h = F.silu(torch.bmm(xe, p["w_gate_e"])) * torch.bmm(xe, p["w_up_e"])
-    else:
-        h = F.gelu(torch.bmm(xe, p["w_up_e"]), approximate="tanh")
-    y = _combine(cfg, r, torch.bmm(h, p["w_down_e"]), how, tp)
+    with tracing.span("moe.dispatch"):
+        xe, how = _dispatch(cfg, r, xt, C, experts)
+    with tracing.span("moe.experts"):
+        if cfg.activation == "swiglu":
+            h = F.silu(torch.bmm(xe, p["w_gate_e"])) * torch.bmm(xe, p["w_up_e"])
+        else:
+            h = F.gelu(torch.bmm(xe, p["w_up_e"]), approximate="tanh")
+        ye = torch.bmm(h, p["w_down_e"])
+    with tracing.span("moe.combine"):
+        y = _combine(cfg, r, ye, how, tp)
 
     aux: Dict[str, torch.Tensor] = {}
     if with_aux:

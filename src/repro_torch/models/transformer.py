@@ -52,6 +52,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.collective import ModelParallel, SeqSplit
 from repro_torch.models import layers as L
@@ -122,11 +123,14 @@ def apply_block(
         y, new_cache = L.attention(cfg, p["mixer"], h, positions=positions, cache=cache,
                                    cache_pos=cache_pos, tp=tp, seq=seq, kv_end=kv_end)
     elif kind == "mamba":
-        y, new_cache = S.apply_mamba(cfg, p["mixer"], h, state=cache, tp=tp)
+        with tracing.span("ssm.mamba"):
+            y, new_cache = S.apply_mamba(cfg, p["mixer"], h, state=cache, tp=tp)
     elif kind == "mlstm":
-        y, new_cache = S.apply_mlstm(cfg, p["mixer"], h, state=cache, tp=tp)
+        with tracing.span("ssm.mlstm"):
+            y, new_cache = S.apply_mlstm(cfg, p["mixer"], h, state=cache, tp=tp)
     elif kind == "slstm":
-        y, new_cache = S.apply_slstm(cfg, p["mixer"], h, state=cache, tp=tp)
+        with tracing.span("ssm.slstm"):
+            y, new_cache = S.apply_slstm(cfg, p["mixer"], h, state=cache, tp=tp)
     else:
         raise ValueError(kind)
     x = x + y

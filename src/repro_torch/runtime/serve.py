@@ -25,6 +25,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.collective import all_gather_dim
 from repro_torch.device import resolve
 from repro_torch.models.transformer import check_tp
@@ -63,7 +64,11 @@ def build_serve_fns(model, max_len: int, device: str | torch.device = "cuda", me
     a sequence split, its slice of the positions. A (B,) tensor ``pos`` in
     the cache (one position per row, ``zoo.Model``) is the global batch's,
     as the batch is: decode_fn runs the rank's rows of it and returns it
-    advanced, whole."""
+    advanced, whole.
+
+    A prefill opens a new unit of ``repro_torch/tracing.py`` (span
+    ``serve.prefill``); the decode steps after it (``serve.decode``) belong
+    to the same unit, the batch."""
     dev = resolve(device)
     if model.device != dev:
         raise ValueError(f"model lives on {model.device}, serve fns asked for {dev}")
@@ -90,21 +95,23 @@ def build_serve_fns(model, max_len: int, device: str | torch.device = "cuda", me
 
     @torch.no_grad()
     def prefill_fn(params, batch):
-        batch, plan = local(batch)
-        logits, cache = model.prefill(params, batch, max_len, tp=tp, seq=plan.seq)
-        return gathered(logits, plan), cache
+        with tracing.span("serve.prefill", unit=True):
+            batch, plan = local(batch)
+            logits, cache = model.prefill(params, batch, max_len, tp=tp, seq=plan.seq)
+            return gathered(logits, plan), cache
 
     @torch.no_grad()
     def decode_fn(params, cache, batch):
-        batch, plan = local(batch)
-        pos = cache["pos"]
-        split = plan.rows is not None and torch.is_tensor(pos) and pos.ndim == 1
-        if split:  # the rank's rows of the global batch's positions
-            i, n, _ = plan.rows
-            cache["pos"] = pos.chunk(n)[i]
-        logits, cache = model.decode_step(params, cache, batch, tp=tp, seq=plan.seq)
-        if split:
-            cache["pos"] = pos + next(iter(batch.values())).shape[1]
-        return gathered(logits, plan), cache
+        with tracing.span("serve.decode"):
+            batch, plan = local(batch)
+            pos = cache["pos"]
+            split = plan.rows is not None and torch.is_tensor(pos) and pos.ndim == 1
+            if split:  # the rank's rows of the global batch's positions
+                i, n, _ = plan.rows
+                cache["pos"] = pos.chunk(n)[i]
+            logits, cache = model.decode_step(params, cache, batch, tp=tp, seq=plan.seq)
+            if split:
+                cache["pos"] = pos + next(iter(batch.values())).shape[1]
+            return gathered(logits, plan), cache
 
     return prefill_fn, decode_fn

@@ -60,6 +60,14 @@ The step takes this rank's shard of the global batch (``Mesh.batch_index``;
 every "model" rank of a replica takes the same one) and updates the state
 it is given in place, leaf by leaf (JAX donates the state buffers), and
 returns it.
+
+A step is one unit of ``repro_torch/tracing.py``: its span ``train.step``
+holds ``train.forward`` (the loss), ``train.backward`` (autograd, the
+rematerialised forward included), ``train.vote`` (step 3 and the vote's
+gate of step 4), ``train.reduce`` (the rest of step 4: the sums, the
+reduce-scatter, the pod hop, the division), ``train.commit`` (step 5's
+rollback condition: norms, finiteness, their all-reduces) and
+``train.update`` (AdamW and the gated write-back).
 """
 from __future__ import annotations
 
@@ -68,6 +76,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch import tracing
 from repro_torch.core.collective import (GatherShard, all_gather_many, classic_track_commit,
                                          fast_quorum_size, psum, reduce_scatter_many,
                                          voted_psum)
@@ -165,6 +174,10 @@ def build_train_step(
     gather_fn = make_gather_fn(stack_specs, data_group) if fsdp_stream else None
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        with tracing.span("train.step", unit=True):
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch: Dict[str, torch.Tensor]):
         params = state.params
         items = leaves_with_paths(params)
         specs = [spec_of[shd.path_str(p)] for p, _ in items]
@@ -185,154 +198,163 @@ def build_train_step(
                     full[i] = t
         diff = [p.detach().requires_grad_(True) for p in full]
         del full
-        loss, metrics = model.loss(unflatten(params, diff), batch, gather_fn=gather_fn, tp=tp)
-        grads = torch.autograd.grad(loss, diff, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, diff)]
+        with tracing.span("train.forward"):
+            loss, metrics = model.loss(unflatten(params, diff), batch, gather_fn=gather_fn,
+                                       tp=tp)
+        # The backward's kernels launch from autograd's device thread (the
+        # rematerialised forward's among them) while this span is open.
+        with tracing.span("train.backward"):
+            grads = torch.autograd.grad(loss, diff, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, diff)]
         del diff
 
         with torch.no_grad():
-            loss = loss.detach()
-            # Streamed stack leaves with an FSDP dim come back reduce-scattered
-            # over "data" by the gather's backward; every other gradient is
-            # this replica's own, full-shaped.
-            already = [fsdp_stream and s and d is not None for s, d in zip(in_stack, dims)]
-            # --- Fast Raft vote on the pre-reduction leaves.
-            pre = [(g, m) for g, s, m in zip(grads, in_stack, msplit)
-                   if not (fsdp_stream and s)]
-            finite = torch.isfinite(loss)
-            sq = torch.zeros((), dtype=torch.float32, device=loss.device)
-            if tp is not None:  # the "model"-split leaves' (sq, non-finite)
-                split = torch.zeros(2, dtype=torch.float32, device=loss.device)
-            for g, m in pre:
-                if m:
-                    split[0] += torch.sum(torch.square(g.float()))
-                    split[1] += (~torch.isfinite(g)).any().float()
+            with tracing.span("train.vote"):
+                loss = loss.detach()
+                # Streamed stack leaves with an FSDP dim come back reduce-scattered
+                # over "data" by the gather's backward; every other gradient is
+                # this replica's own, full-shaped.
+                already = [fsdp_stream and s and d is not None for s, d in zip(in_stack, dims)]
+                # --- Fast Raft vote on the pre-reduction leaves.
+                pre = [(g, m) for g, s, m in zip(grads, in_stack, msplit)
+                       if not (fsdp_stream and s)]
+                finite = torch.isfinite(loss)
+                sq = torch.zeros((), dtype=torch.float32, device=loss.device)
+                if tp is not None:  # the "model"-split leaves' (sq, non-finite)
+                    split = torch.zeros(2, dtype=torch.float32, device=loss.device)
+                for g, m in pre:
+                    if m:
+                        split[0] += torch.sum(torch.square(g.float()))
+                        split[1] += (~torch.isfinite(g)).any().float()
+                    else:
+                        finite = finite & torch.isfinite(g).all()
+                        sq = sq + torch.sum(torch.square(g.float()))
+                if tp is not None:
+                    # The whole leaves' norm and finiteness: one vote per replica.
+                    dist.all_reduce(split, group=tp.group)
+                    finite = finite & (split[1] == 0)
+                    sq = sq + split[0]
+                vote = (finite & (torch.sqrt(sq) < vote_max_norm)).float()
+                del pre
+
+                if track == "classic":
+                    # Two dedicated vote rounds before the reduction; the verdict
+                    # is held to the fast quorum, as in repro.
+                    n_yes, committed = classic_track_commit(vote, group)
+                    committed = n_yes >= fq
+
+                # A replica that voted 0 contributes exactly nothing (nan_to_num
+                # first: NaN * 0 is NaN). Gated in place, one leaf at a time.
+                for g, a in zip(grads, already):
+                    if not a:
+                        g.copy_(torch.nan_to_num(g.float()) * vote)
+
+            with tracing.span("train.reduce"):
+                # Leaves with no FSDP dim, the loss metrics and the vote: one sum.
+                plain = [i for i, d in enumerate(dims) if d is None]
+                packed = {"grads": {str(i): grads[i] for i in plain},
+                          "metrics": {k: torch.nan_to_num(v.detach().float()) * vote
+                                      for k, v in {"loss": loss, **metrics}.items()}}
+                if track == "fast":
+                    summed, n_yes, committed = voted_psum(packed, vote, group)
                 else:
-                    finite = finite & torch.isfinite(g).all()
-                    sq = sq + torch.sum(torch.square(g.float()))
-            if tp is not None:
-                # The whole leaves' norm and finiteness: one vote per replica.
-                dist.all_reduce(split, group=tp.group)
-                finite = finite & (split[1] == 0)
-                sq = sq + split[0]
-            vote = (finite & (torch.sqrt(sq) < vote_max_norm)).float()
-            del pre
+                    summed = psum(packed, group)
+                del packed
+                red: List[Optional[torch.Tensor]] = [None] * len(grads)
+                for i in plain:
+                    red[i] = summed["grads"][str(i)]
 
-            if track == "classic":
-                # Two dedicated vote rounds before the reduction; the verdict
-                # is held to the fast quorum, as in repro.
-                n_yes, committed = classic_track_commit(vote, group)
-                committed = n_yes >= fq
+                # FSDP leaves: reduce-scatter over "data" unless streamed, then
+                # the cross-pod hop.
+                fsdp = [i for i, d in enumerate(dims) if d is not None]
+                scatter = [i for i in fsdp if not already[i]]
+                if scatter:
+                    for i, t in zip(scatter, reduce_scatter_many([grads[i] for i in scatter],
+                                                                 [dims[i] for i in scatter],
+                                                                 data_group)):
+                        grads[i] = t
+                if fsdp and pod_group is not None:
+                    gs = [grads[i] for i in fsdp]
+                    if compress_pod and state.ef_residual is not None:
+                        ef = leaves(state.ef_residual)
+                        gs = _pod_hop_compressed(gs, [ef[i] for i in fsdp], pod_group)
+                    else:
+                        gs = _pod_hop(gs, pod_group)
+                    for i, t in zip(fsdp, gs):
+                        grads[i] = t
+                for i in fsdp:
+                    red[i] = grads[i]
+                del grads
 
-            # A replica that voted 0 contributes exactly nothing (nan_to_num
-            # first: NaN * 0 is NaN). Gated in place, one leaf at a time.
-            for g, a in zip(grads, already):
-                if not a:
-                    g.copy_(torch.nan_to_num(g.float()) * vote)
+                denom = torch.clamp(n_yes, min=1.0)
+                for g in red:
+                    g.div_(denom.to(g.dtype))
 
-            # Leaves with no FSDP dim, the loss metrics and the vote: one sum.
-            plain = [i for i, d in enumerate(dims) if d is None]
-            packed = {"grads": {str(i): grads[i] for i in plain},
-                      "metrics": {k: torch.nan_to_num(v.detach().float()) * vote
-                                  for k, v in {"loss": loss, **metrics}.items()}}
-            if track == "fast":
-                summed, n_yes, committed = voted_psum(packed, vote, group)
-            else:
-                summed = psum(packed, group)
-            del packed
-            red: List[Optional[torch.Tensor]] = [None] * len(grads)
-            for i in plain:
-                red[i] = summed["grads"][str(i)]
+            with tracing.span("train.commit"):
+                # Rollback condition: quorum AND finite reduced gradients on every
+                # shard. The global norm adds the FSDP shards' squares over "data"
+                # and the "model" slices' over "model" (a leaf split on both over
+                # both). (Without FSDP or TP every leaf is the same on every rank.)
+                repl_sq = torch.zeros((), dtype=torch.float32, device=loss.device)
+                # (sq of data-split leaves, non-finite[, sq of leaves split on both])
+                shard = torch.zeros(2 if tp is None else 3, dtype=torch.float32,
+                                    device=loss.device)
+                if tp is not None:
+                    model_sq = torch.zeros((), dtype=torch.float32, device=loss.device)
+                for g, d, m in zip(red, dims, msplit):
+                    gs = torch.sum(torch.square(g.float()))
+                    if m and d is not None:
+                        shard[2] += gs
+                    elif m:
+                        model_sq = model_sq + gs
+                    elif d is None:
+                        repl_sq = repl_sq + gs
+                    else:
+                        shard[0] += gs
+                    shard[1] += (~torch.isfinite(g)).any().float()
+                if fsdp:
+                    dist.all_reduce(shard, group=data_group if data_group is not None else group)
+                if tp is not None:
+                    whole = torch.stack([model_sq + shard[2], shard[1]])
+                    dist.all_reduce(whole, group=tp.group)
+                    shard[1] = whole[1]
+                    repl_sq = repl_sq + whole[0]  # with the "model" slices' squares
+                committed = committed & (shard[1] == 0)
+                grad_norm = torch.sqrt(repl_sq + shard[0])
 
-            # FSDP leaves: reduce-scatter over "data" unless streamed, then
-            # the cross-pod hop.
-            fsdp = [i for i, d in enumerate(dims) if d is not None]
-            scatter = [i for i in fsdp if not already[i]]
-            if scatter:
-                for i, t in zip(scatter, reduce_scatter_many([grads[i] for i in scatter],
-                                                             [dims[i] for i in scatter],
-                                                             data_group)):
-                    grads[i] = t
-            if fsdp and pod_group is not None:
-                gs = [grads[i] for i in fsdp]
-                if compress_pod and state.ef_residual is not None:
-                    ef = leaves(state.ef_residual)
-                    gs = _pod_hop_compressed(gs, [ef[i] for i in fsdp], pod_group)
-                else:
-                    gs = _pod_hop(gs, pod_group)
-                for i, t in zip(fsdp, gs):
-                    grads[i] = t
-            for i in fsdp:
-                red[i] = grads[i]
-            del grads
+            with tracing.span("train.update"):
+                # --- AdamW on the local shards, gated by the commit, written back
+                # leaf by leaf. repro blends new * c + old * (1 - c) in fp32,
+                # which a select equals for finite values; where a rolled-back
+                # update is not finite (a poisoned replica's streamed gradients)
+                # the blend would write NaN and the select keeps the old value.
+                def gate(new, old):
+                    old.copy_(torch.where(committed, new.to(old.dtype), old))
 
-            denom = torch.clamp(n_yes, min=1.0)
-            for g in red:
-                g.div_(denom.to(g.dtype))
+                opt = state.opt
+                n = len(local)
+                masters = leaves(opt.master) if opt.master is not None else [None] * n
+                updates = adamw.update_leaves(opt_cfg, unflatten(params, red), opt, params,
+                                              grad_norm=grad_norm)
+                # One leaf's results at a time: each is dropped before the next
+                # leaf's are made (a zip over ``updates`` would hold the last
+                # ones in its result tuple meanwhile).
+                for p, m, v, master in zip(local, leaves(opt.m), leaves(opt.v), masters):
+                    m_new, v_new, p32_new = next(updates)
+                    gate(p32_new.to(p.dtype), p)
+                    gate(m_new, m)
+                    gate(v_new, v)
+                    if master is not None:
+                        gate(p32_new, master)
+                    del m_new, v_new, p32_new
+                opt.step.add_(committed.to(opt.step.dtype))
 
-            # Rollback condition: quorum AND finite reduced gradients on every
-            # shard. The global norm adds the FSDP shards' squares over "data"
-            # and the "model" slices' over "model" (a leaf split on both over
-            # both). (Without FSDP or TP every leaf is the same on every rank.)
-            repl_sq = torch.zeros((), dtype=torch.float32, device=loss.device)
-            # (sq of data-split leaves, non-finite[, sq of leaves split on both])
-            shard = torch.zeros(2 if tp is None else 3, dtype=torch.float32,
-                                device=loss.device)
-            if tp is not None:
-                model_sq = torch.zeros((), dtype=torch.float32, device=loss.device)
-            for g, d, m in zip(red, dims, msplit):
-                gs = torch.sum(torch.square(g.float()))
-                if m and d is not None:
-                    shard[2] += gs
-                elif m:
-                    model_sq = model_sq + gs
-                elif d is None:
-                    repl_sq = repl_sq + gs
-                else:
-                    shard[0] += gs
-                shard[1] += (~torch.isfinite(g)).any().float()
-            if fsdp:
-                dist.all_reduce(shard, group=data_group if data_group is not None else group)
-            if tp is not None:
-                whole = torch.stack([model_sq + shard[2], shard[1]])
-                dist.all_reduce(whole, group=tp.group)
-                shard[1] = whole[1]
-                repl_sq = repl_sq + whole[0]  # with the "model" slices' squares
-            committed = committed & (shard[1] == 0)
-            grad_norm = torch.sqrt(repl_sq + shard[0])
-
-            # --- AdamW on the local shards, gated by the commit, written back
-            # leaf by leaf. repro blends new * c + old * (1 - c) in fp32,
-            # which a select equals for finite values; where a rolled-back
-            # update is not finite (a poisoned replica's streamed gradients)
-            # the blend would write NaN and the select keeps the old value.
-            def gate(new, old):
-                old.copy_(torch.where(committed, new.to(old.dtype), old))
-
-            opt = state.opt
-            n = len(local)
-            masters = leaves(opt.master) if opt.master is not None else [None] * n
-            updates = adamw.update_leaves(opt_cfg, unflatten(params, red), opt, params,
-                                          grad_norm=grad_norm)
-            # One leaf's results at a time: each is dropped before the next
-            # leaf's are made (a zip over ``updates`` would hold the last
-            # ones in its result tuple meanwhile).
-            for p, m, v, master in zip(local, leaves(opt.m), leaves(opt.v), masters):
-                m_new, v_new, p32_new = next(updates)
-                gate(p32_new.to(p.dtype), p)
-                gate(m_new, m)
-                gate(v_new, v)
-                if master is not None:
-                    gate(p32_new, master)
-                del m_new, v_new, p32_new
-            opt.step.add_(committed.to(opt.step.dtype))
-
-            out = {"loss": summed["metrics"]["loss"] / denom,
-                   "grad_norm": grad_norm,
-                   "n_yes": n_yes,
-                   "committed": committed.float(),
-                   "step": opt.step.float(),
-                   **{k: summed["metrics"][k] / denom for k in metrics}}
+                out = {"loss": summed["metrics"]["loss"] / denom,
+                       "grad_norm": grad_norm,
+                       "n_yes": n_yes,
+                       "committed": committed.float(),
+                       "step": opt.step.float(),
+                       **{k: summed["metrics"][k] / denom for k in metrics}}
         return state, out
 
     return step
