@@ -44,7 +44,15 @@ non-zero exit:
      time from torch.profiler (device_ms, library_device_ms); K1, K4 and K5
      also at jamba's shapes, K1 and K4 at phase 27's heads that no other
      row has (20 / 20 and 40 / 8 and 40 / 10 of 128, 32 / 32 of 64), K5 at
-     rows of 2560, and the variant at phase 24 (b)'s slice;
+     rows of 2560, and the variant at phase 24 (b)'s slice; then the AdamW
+     kernel against its plain version bit for bit on m, v, master and p
+     (``ADAMW_CASES``: bf16 and fp32 leaves, master weights on and off, a
+     step that commits and one that does not and so writes nothing, a
+     ragged tail, misaligned views, non-finite gradients, granite's
+     402,653,184-element expert leaf), granite's 12 leaves updated by the
+     train step's loop under ``torch.cuda.set_sync_debug_mode("error")``,
+     and timed there beside the bound, the plain path and
+     ``torch._fused_adamw_`` (a yardstick the port never calls);
   4. serve-path parity: qwen3-1.7b at full width with 2 layers in float32
      serves 2 ragged requests (prefill + 4 decode steps) on the card through
      the kernels and on the CPU through the plain versions; logits agree
@@ -847,6 +855,172 @@ def backward_entries(gen, hd):
     ]
 
 
+# ------------------------------------------------------ phase 3: AdamW
+
+G_EXPERT_LEAF = (24, 32, 1024, 512)  # granite's stacked expert leaf: 402,653,184 elements
+ADAMW_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=10)
+# n, g's type, p's type, master weights, committed, what the case holds.
+ADAMW_CASES = (
+    *((1 << 20, dt, dt, master, c, "")
+      for dt in (torch.bfloat16, torch.float32) for master in (True, False) for c in (True, False)),
+    (1_000_003, torch.bfloat16, torch.bfloat16, True, True, "ragged tail"),
+    (1_000_003, torch.float32, torch.float32, False, True, "ragged tail"),
+    ((1 << 20) + 5, torch.bfloat16, torch.bfloat16, True, True, "misaligned"),
+    ((1 << 20) + 5, torch.float32, torch.float32, False, True, "misaligned"),
+    ((1 << 20) + 5, torch.bfloat16, torch.bfloat16, True, True, "p misaligned"),
+    (1 << 20, torch.bfloat16, torch.bfloat16, True, True, "non-finite g"),
+    (1 << 20, torch.float32, torch.float32, False, True, "non-finite g"),
+    (1 << 20, torch.bfloat16, torch.bfloat16, True, False, "non-finite g"),
+    (G_EXPERT_LEAF, torch.bfloat16, torch.bfloat16, True, True, "granite's expert leaf"),
+)
+
+
+def bits(t):
+    """t's bits as integers: equality of these is equality bit for bit, NaN
+    payloads included."""
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def adamw_leaf(gen, shape, g_dt, p_dt, master, what):
+    """(g, m, v, master, p) of one leaf in the train step's layout: m, v and
+    master fp32. ``what`` "misaligned": every tensor a view one element into
+    its buffer (no pointer 16-byte aligned); "p misaligned": p alone;
+    "non-finite g": +inf, -inf and NaN among the gradients."""
+    dev = gen.device
+    n = math.prod(shape) if isinstance(shape, tuple) else shape
+    shape = shape if isinstance(shape, tuple) else (n,)
+
+    def make(dt, skew, scale=1.0, positive=False):
+        base = torch.empty(n + skew, dtype=torch.float32, device=dev)
+        if positive:
+            base.uniform_(0, 1e-4, generator=gen)
+        else:
+            base.normal_(0, scale, generator=gen)
+        return base.to(dt)[skew:].view(shape)
+
+    skew = 1 if what == "misaligned" else 0
+    p = make(p_dt, 1 if what in ("misaligned", "p misaligned") else 0)
+    g = make(g_dt, skew, 1e-2)
+    if what == "non-finite g":
+        flat = g.view(-1)
+        flat[::997], flat[1::1009], flat[2::1013] = math.inf, -math.inf, math.nan
+    m = make(torch.float32, skew, 1e-3)
+    v = make(torch.float32, skew, positive=True)
+    ms = None
+    if master:
+        ms = make(torch.float32, skew)
+        ms.copy_(p.float())
+    return g, m, v, ms, p
+
+
+def check_adamw(dev, timer):
+    """The AdamW kernel (``kernels/adamw.py``) against its plain version
+    (``ref.adamw_update_``) on the card, bit for bit on m, v, master and p,
+    for every case of ``ADAMW_CASES``; a step that did not commit leaves
+    every bit as it was. Then granite's 12 leaves updated by the train
+    step's loop (``update_leaves`` with ``committed``) under
+    ``torch.cuda.set_sync_debug_mode("error")``, and timed beside the bound
+    of the bytes, the plain path and ``torch._fused_adamw_`` (a yardstick:
+    another update, fp32 params and grads, never called by the port).
+    Returns the kernel's entry for the kernels line."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import adamw as kadamw
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import zoo
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaves
+
+    cfg = adamw.AdamWConfig(**ADAMW_OPT)
+    consts = dict(b1=cfg.b1, b2=cfg.b2, eps=cfg.eps, weight_decay=cfg.weight_decay)
+    gen = torch.Generator(device=dev).manual_seed(28)
+    log("phase 3: AdamW kernel vs plain version, bit for bit")
+    step = torch.tensor(3, dtype=torch.int32, device=dev)
+    scalars = adamw.step_scalars(cfg, step, torch.tensor(2.5, device=dev))
+    bad = []
+    for shape, g_dt, p_dt, master, committed, what in ADAMW_CASES:
+        c = torch.tensor(committed, device=dev)
+        g, m, v, ms, p = adamw_leaf(gen, shape, g_dt, p_dt, master, what)
+        before = [None if t is None else t.clone() for t in (m, v, ms, p)]
+        plain = [None if t is None else t.clone() for t in (m, v, ms, p)]
+        ref.adamw_update_(g, *plain, *scalars, c, **consts)
+        ops.adamw_update(g, m, v, ms, p, *scalars, c, **consts)
+        torch.cuda.synchronize()
+        tag = (f"n {math.prod(p.shape)} g {g_dt} p {p_dt} master {master} committed "
+               f"{committed}{', ' + what if what else ''}")
+        diffs = []
+        for name, got, want, old in zip(("m", "v", "master", "p"), (m, v, ms, p), plain, before):
+            if got is None:
+                continue
+            if not torch.equal(bits(got), bits(want)):
+                differ = bits(got) != bits(want)
+                nan = (got.isnan() & want.isnan() & differ).sum().item()
+                diffs.append(f"{name} {differ.sum().item()} elements ({nan} NaN vs NaN)")
+            if not committed and not torch.equal(bits(got), bits(old)):
+                diffs.append(f"{name} written on a step that did not commit")
+        log(f"  adamw_update {tag}: {'; '.join(diffs) if diffs else 'equal bit for bit (ok)'}")
+        if diffs:
+            bad.append(tag)
+        del g, m, v, ms, p, before, plain
+    if bad:
+        fail(f"adamw_update differs from its plain version in {bad}")
+
+    model = zoo.build(registry.get(MOE), dtype=torch.bfloat16, device=dev)
+    shapes = leaves(model.param_shapes())
+    # Trees keyed in ``leaves`` order, as the train step holds them.
+    params = {f"{i:02d}": torch.empty(t.shape, dtype=t.dtype, device=dev).normal_(generator=gen)
+              for i, t in enumerate(shapes)}
+    grads = {k: torch.empty_like(t).normal_(0, 1e-2, generator=gen) for k, t in params.items()}
+    state = adamw.OptState(
+        m={k: torch.zeros_like(t, dtype=torch.float32) for k, t in params.items()},
+        v={k: torch.zeros_like(t, dtype=torch.float32) for k, t in params.items()},
+        master={k: t.float() for k, t in params.items()}, step=step.clone())
+    norm, c = torch.tensor(2.5, device=dev), torch.tensor(True, device=dev)
+    n = sum(t.numel() for t in params.values())
+    log(f"  granite's {len(params)} leaves, {n:,} parameters "
+        f"({sorted({str(t.dtype) for t in params.values()})})")
+
+    def fused():
+        for _ in adamw.update_leaves(cfg, grads, state, params, grad_norm=norm, committed=c):
+            pass
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fused()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    if ops.launch_counts()["adamw_update"] != len(params):
+        fail(f"adamw_update: {ops.launch_counts()['adamw_update']} launches for "
+             f"{len(params)} leaves")
+    log(f"  the train step's update loop ran under sync debug mode 'error': no host sync, "
+        f"{len(params)} launches")
+
+    trees = [list(t.values()) for t in (grads, state.m, state.v, state.master, params)]
+
+    def plain():
+        scale, lr, b1c, b2c = adamw.step_scalars(cfg, state.step, norm)
+        for g, m, v, ms, p in zip(*trees):
+            ref.adamw_update_(g, m, v, ms, p, scale, lr, b1c, b2c, c, **consts)
+
+    g32 = [g.float() for g in trees[0]]
+    steps = [torch.tensor(4.0, device=dev) for _ in g32]
+
+    def library():
+        torch._fused_adamw_(trees[3], g32, trees[1], trees[2], [], steps, lr=cfg.lr,
+                            beta1=cfg.b1, beta2=cfg.b2, weight_decay=cfg.weight_decay,
+                            eps=cfg.eps, amsgrad=False, maximize=False)
+
+    nbytes = sum(kadamw.work(g, ms, p)[1] for g, _, _, ms, p in zip(*trees))
+    log(f"phase 3: timing adamw_update at granite's {len(params)} leaves ({nbytes / 1e9:.2f} GB "
+        f"a step), beside the plain path and torch._fused_adamw_ (fp32 params and grads)")
+    return dict(name="adamw_update", route="cuda", source="src/repro_torch/csrc/adamw.cu",
+                replaces="none (repro's AdamW is plain jnp, fused by XLA)",
+                fn=fused, plain=plain, plain_reps=5, library=library,
+                bound=(nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+
+
 # ------------------------------------ the MoE layer and the mixers, observed
 
 # The program's spans (``repro_torch/tracing.py``) that ``stage_split`` reads:
@@ -1049,13 +1223,18 @@ def serve_launches(cfg, steps, split=False):
 def train_launches(cfg):
     """Launches of one train step with remat "dots": each group's forward
     runs again in the backward, so K1 and K5 launch twice per layer (the
-    final norm once); K2 and K3 once per attention layer."""
+    final norm once); K2 and K3 once per attention layer; the AdamW kernel
+    once per leaf of the parameter tree (a rank's shard of each leaf on a
+    mesh)."""
     from repro_torch.kernels import ops
+    from repro_torch.models import zoo
+    from repro_torch.tree import leaves
 
     want = {name: 0 for name in ops.KERNELS}
     norms = rmsnorms_per_forward(cfg)
     want.update(flash_attention=2 * attn_layers(cfg), flash_attention_dq=attn_layers(cfg),
-                flash_attention_dkv=attn_layers(cfg), rmsnorm=2 * norms - 1 if norms else 0)
+                flash_attention_dkv=attn_layers(cfg), rmsnorm=2 * norms - 1 if norms else 0,
+                adamw_update=len(leaves(zoo.build(cfg, device="cpu").param_shapes())))
     return want
 
 
@@ -3311,7 +3490,8 @@ def main() -> int:
     timer = Timer(dev)
     (fwd, fwd_d64, fwd_jamba, fwd_archs), (bwd, bwd_d64) = (check_kernels(dev, timer),
                                                             check_backward(dev, timer))
-    kernels, kernels_d64 = fwd + bwd, fwd_d64 + bwd_d64
+    adamw_e = timed(check_adamw(dev, timer), timer, {"adamw_update": [0.0]})
+    kernels, kernels_d64 = fwd + bwd + [adamw_e], fwd_d64 + bwd_d64
     del timer
     counts = {}  # launches on each main path: one serve run, six train steps
     for arch, first in ((DENSE, 4), (MOE, 10)):

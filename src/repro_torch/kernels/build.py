@@ -23,7 +23,7 @@ from typing import Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention", "rmsnorm")
+SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention", "rmsnorm", "adamw")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

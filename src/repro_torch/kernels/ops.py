@@ -22,8 +22,10 @@ reads them all and ``reset_launches`` sets them to 0.
 Each launch is a ``torch.library.custom_op`` of the ``repro_torch``
 namespace (``flash_attention_fwd``, ``flash_attention_dq``,
 ``flash_attention_dkv``, ``decode_attention``, ``decode_attention_lse``,
-``rmsnorm``): its implementation is the launch, its fake implementation
-gives the output shapes and types, so the CUDA path traces on fake tensors
+``rmsnorm``, ``adamw_update``): its implementation is the launch, its fake
+implementation gives the output shapes and types (``adamw_update`` returns
+none: it declares the leaves it writes in place), so the CUDA path traces on
+fake tensors
 (``launch/dryrun.py``) with nothing built and no launch counted. Its work,
 (operations, bytes) from the call's shapes and lengths, is the module's
 work formula; ``KERNEL_OPS`` maps each op to its kernel name and formula,
@@ -36,14 +38,15 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
+from repro_torch.kernels import adamw as _adamw
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rms
 
 KERNELS = ("flash_attention", "flash_attention_dq", "flash_attention_dkv",
-           "decode_attention", "decode_attention_lse", "rmsnorm")
-_COUNTERS = (_fa.launches, _dec.launches, _rms.launches)
+           "decode_attention", "decode_attention_lse", "rmsnorm", "adamw_update")
+_COUNTERS = (_fa.launches, _dec.launches, _rms.launches, _adamw.launches)
 
 
 def _fwd_work(q, k, v, qo, kl, qo_s, kl_s, causal, scale, **_):
@@ -70,6 +73,10 @@ def _rms_work(x, scale, eps, **_):
     return _rms.work(x, scale)
 
 
+def _adamw_work(g, m, v, master, p, *_, **__):
+    return _adamw.work(g, master, p)
+
+
 _r = torch.ops.repro_torch
 # op -> (kernel name, work formula over the op's arguments: (operations, bytes))
 KERNEL_OPS: Dict[object, Tuple[str, Callable]] = {
@@ -79,6 +86,7 @@ KERNEL_OPS: Dict[object, Tuple[str, Callable]] = {
     _r.decode_attention: ("decode_attention", _dec_work),
     _r.decode_attention_lse: ("decode_attention_lse", _lse_work),
     _r.rmsnorm: ("rmsnorm", _rms_work),
+    _r.adamw_update: ("adamw_update", _adamw_work),
 }
 
 
@@ -163,3 +171,23 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Te
     if _needs_grad(x, scale):
         return _rms.RMSNormFn.apply(x, scale, eps)
     return _rms.rmsnorm(x, scale, eps)
+
+
+def adamw_update(g, m, v, master, p, scale, lr, b1c, b2c, committed, *, b1: float, b2: float,
+                 eps: float, weight_decay: float) -> None:
+    """One leaf of AdamW, written back in place where the 0-d bool
+    ``committed`` holds (semantics of ``ref.adamw_update_``): m, v, the
+    master weights (None where the state keeps none) and p. The kernel
+    takes contiguous leaves: a strided g is copied into that layout first,
+    a strided m, v, master or p updated in a contiguous copy and copied
+    back."""
+    if p.device.type == "cpu":
+        return ref.adamw_update_(g, m, v, master, p, scale, lr, b1c, b2c, committed, b1, b2,
+                                 eps, weight_decay)
+    held = (m, v, master, p)
+    dense = [t if t is None or t.is_contiguous() else t.contiguous() for t in held]
+    _adamw.adamw_update(g.contiguous(), *dense, scale, lr, b1c, b2c, committed, b1, b2, eps,
+                        weight_decay)
+    for t, d in zip(held, dense):
+        if d is not t:
+            t.copy_(d)

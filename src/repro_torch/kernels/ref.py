@@ -3,7 +3,9 @@
 They follow ``repro/kernels/ref.py`` (masked scores are ``NEG_INF = -1e30``,
 not ``-inf``; softmax and norm statistics in fp32). ``attention`` also takes
 the optional per-batch ``q_offset`` and ``kv_len`` of
-``repro.models.layers._sdpa``, which the cached prefill needs. The CPU path
+``repro.models.layers._sdpa``, which the cached prefill needs. ``adamw``
+follows ``repro/optim/adamw.py`` (a leaf of its update, op for op), and
+``adamw_update_`` adds the train step's commit gate. The CPU path
 of ``kernels/ops.py`` runs these, and ``chip_smoke.py`` holds each CUDA or
 Triton kernel against them on the card.
 """
@@ -198,3 +200,58 @@ def rmsnorm_bwd(x, scale, dy, eps: float = 1e-6):
     dx = r * g - xf * r.pow(3) * torch.mean(g * xf, dim=-1, keepdim=True)
     ds = (dyf * xf * r).reshape(-1, x.shape[-1]).sum(0)
     return dx.to(x.dtype), ds.to(scale.dtype)
+
+
+def adamw(g, m, v, p, scale, lr, b1c, b2c, b1: float, b2: float, eps: float,
+          weight_decay: float):
+    """One leaf of AdamW, fp32: (m_new, v_new, p_new) from the gradient g,
+    the moments m and v, the reference weights p (fp32 master weights, or
+    the parameter itself) and the step's 0-d tensors: the clip scale, lr
+    and the bias corrections b1c, b2c (``optim/adamw.py::update_leaves``).
+
+    repro's lines, m_new = b1 m + (1 - b1) g, v_new = b2 v + (1 - b2) g^2,
+    upd = (m_new / b1c) / (sqrt(v_new / b2c) + eps) and
+    p_new = p - lr (upd + wd p), op for op (the same roundings), but each
+    result written into a tensor the step made: at most four leaf-sized
+    temporaries at once, results included, not six (a vocabulary's 1 B
+    parameters are 4 GB a temporary in fp32). The plain version of the
+    AdamW kernel (``csrc/adamw.cu``), which does the same operations in the
+    same order."""
+    g = g.float() * scale
+    m_new = m * b1
+    m_new += g * (1 - b1)
+    sq = torch.square(g).mul_(1 - b2)
+    del g
+    v_new = v * b2
+    v_new += sq
+    del sq
+    den = (v_new / b2c).sqrt_().add_(eps)
+    upd = (m_new / b1c).div_(den)
+    del den
+    p32 = p.float()
+    upd += p32 * weight_decay
+    p_new = torch.sub(p32, upd.mul_(lr), out=upd)
+    return m_new, v_new, p_new
+
+
+def adamw_update_(g, m, v, master, p, scale, lr, b1c, b2c, committed, b1: float, b2: float,
+                  eps: float, weight_decay: float) -> None:
+    """``adamw`` of one leaf written back in place where the 0-d bool
+    ``committed`` holds, and nothing changed where it does not: p (in its
+    own type), m, v and the master weights (None where the state keeps
+    none; p is then the reference) each take ``torch.where(committed, new,
+    old)``. repro blends new * c + old * (1 - c) in fp32, which a select
+    equals for finite values; where a rolled-back update is not finite (a
+    poisoned replica's streamed gradients) the blend would write NaN and the
+    select keeps the old value."""
+    m_new, v_new, p32_new = adamw(g, m, v, p if master is None else master, scale, lr, b1c,
+                                  b2c, b1, b2, eps, weight_decay)
+
+    def gate(new, old):
+        old.copy_(torch.where(committed, new.to(old.dtype), old))
+
+    gate(p32_new.to(p.dtype), p)
+    gate(m_new, m)
+    gate(v_new, v)
+    if master is not None:
+        gate(p32_new, master)

@@ -4,9 +4,11 @@ global-norm clipping, and warmup-cosine schedule. Port of
 in by the train step, the bias correction from ``state.step + 1``.
 
 ``update`` returns new trees, as JAX does. The train step (``runtime/
-spmd.py``) takes ``update_leaves`` instead and writes each new leaf back into
-the state it was given (JAX's buffer donation), so full-width training holds
-one copy of the optimizer state plus one leaf's temporaries."""
+spmd.py``) takes ``update_leaves`` with its ``committed`` instead, which
+updates the state and the parameters it was given in place, leaf by leaf
+(JAX's buffer donation), and only where the step committed: on the card one
+kernel a leaf (``kernels/ops.py::adamw_update``), on the CPU the plain
+version and a select."""
 from __future__ import annotations
 
 import dataclasses
@@ -15,6 +17,7 @@ from typing import Any, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import ops, ref
 from repro_torch.tree import leaves, tree_map, unflatten
 
 Params = Any
@@ -58,53 +61,50 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
 
 
+def step_scalars(cfg: AdamWConfig, step: torch.Tensor, grad_norm: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The step's 0-d tensors, on the state's device: (clip scale, lr, b1c,
+    b2c) for the update from ``step`` (the state's count) with the global
+    gradient norm ``grad_norm``; the bias corrections from step + 1."""
+    step = step + 1
+    lr = schedule(cfg, step)
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(grad_norm, min=1e-9), max=1.0)
+    return scale, lr, 1 - cfg.b1 ** step.float(), 1 - cfg.b2 ** step.float()
+
+
 def update_leaves(
     cfg: AdamWConfig,
     grads: Params,
     state: OptState,
     params: Params,
     grad_norm: Optional[torch.Tensor] = None,
-) -> Iterator[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    committed: Optional[torch.Tensor] = None,
+) -> Iterator[Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]]:
     """The body of ``update``, one leaf at a time: yields (m_new, v_new,
     p32_new) in ``leaves`` order, so a caller can consume each leaf before
-    the next one is computed (the train step does, to keep one leaf's
-    temporaries alive instead of a second copy of the optimizer state)."""
-    step = state.step + 1
-    lr = schedule(cfg, step)
+    the next one is computed.
+
+    With ``committed`` (a 0-d bool tensor, the step's commit) it writes
+    instead: each leaf's m, v, master weights and parameter (``params``'
+    leaf) take their new values in place where ``committed`` holds and keep
+    theirs where it does not (``ops.adamw_update``), and it yields None
+    after each leaf. The train step takes this form."""
     if grad_norm is None:
         grad_norm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves(grads)))
-    scale = torch.clamp(cfg.clip_norm / torch.clamp(grad_norm, min=1e-9), max=1.0)
+    scale, lr, b1c, b2c = step_scalars(cfg, state.step, grad_norm)
+    consts = dict(b1=cfg.b1, b2=cfg.b2, eps=cfg.eps, weight_decay=cfg.weight_decay)
 
-    b1c = 1 - cfg.b1 ** step.float()
-    b2c = 1 - cfg.b2 ** step.float()
-
-    ref = state.master if state.master is not None else params
-
-    def one(g, m, v, p):
-        # repro's lines, m_new = b1 m + (1 - b1) g, v_new = b2 v + (1 - b2) g^2,
-        # upd = (m_new / b1c) / (sqrt(v_new / b2c) + eps) and
-        # p_new = p - lr (upd + wd p), op for op (the same roundings), but
-        # each result written into a tensor the step made: at most four
-        # leaf-sized temporaries at once, results included, not six (a
-        # vocabulary's 1 B parameters are 4 GB a temporary in fp32).
-        g = g.float() * scale
-        m_new = m * cfg.b1
-        m_new += g * (1 - cfg.b1)
-        sq = torch.square(g).mul_(1 - cfg.b2)
-        del g
-        v_new = v * cfg.b2
-        v_new += sq
-        del sq
-        den = (v_new / b2c).sqrt_().add_(cfg.eps)
-        upd = (m_new / b1c).div_(den)
-        del den
-        p32 = p.float()
-        upd += p32 * cfg.weight_decay
-        p_new = torch.sub(p32, upd.mul_(lr), out=upd)
-        return m_new, v_new, p_new
-
-    for g, m, v, p in zip(leaves(grads), leaves(state.m), leaves(state.v), leaves(ref)):
-        yield one(g, m, v, p)
+    if committed is None:
+        ref_tree = state.master if state.master is not None else params
+        for g, m, v, p in zip(leaves(grads), leaves(state.m), leaves(state.v), leaves(ref_tree)):
+            yield ref.adamw(g, m, v, p, scale, lr, b1c, b2c, **consts)
+        return
+    n = len(leaves(params))
+    masters = leaves(state.master) if state.master is not None else [None] * n
+    for g, m, v, master, p in zip(leaves(grads), leaves(state.m), leaves(state.v), masters,
+                                  leaves(params)):
+        ops.adamw_update(g, m, v, master, p, scale, lr, b1c, b2c, committed, **consts)
+        yield None
 
 
 def update(

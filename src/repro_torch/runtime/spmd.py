@@ -323,30 +323,17 @@ def build_train_step(
                 grad_norm = torch.sqrt(repl_sq + shard[0])
 
             with tracing.span("train.update"):
-                # --- AdamW on the local shards, gated by the commit, written back
-                # leaf by leaf. repro blends new * c + old * (1 - c) in fp32,
-                # which a select equals for finite values; where a rolled-back
-                # update is not finite (a poisoned replica's streamed gradients)
-                # the blend would write NaN and the select keeps the old value.
-                def gate(new, old):
-                    old.copy_(torch.where(committed, new.to(old.dtype), old))
-
+                # --- AdamW on the local shards, written in place leaf by leaf
+                # where the step committed (``ops.adamw_update``: one kernel a
+                # leaf on the card; ``ref.adamw_update_`` says how the gate
+                # differs from repro's blend).
                 opt = state.opt
-                n = len(local)
-                masters = leaves(opt.master) if opt.master is not None else [None] * n
                 updates = adamw.update_leaves(opt_cfg, unflatten(params, red), opt, params,
-                                              grad_norm=grad_norm)
-                # One leaf's results at a time: each is dropped before the next
-                # leaf's are made (a zip over ``updates`` would hold the last
-                # ones in its result tuple meanwhile).
-                for p, m, v, master in zip(local, leaves(opt.m), leaves(opt.v), masters):
-                    m_new, v_new, p32_new = next(updates)
-                    gate(p32_new.to(p.dtype), p)
-                    gate(m_new, m)
-                    gate(v_new, v)
-                    if master is not None:
-                        gate(p32_new, master)
-                    del m_new, v_new, p32_new
+                                              grad_norm=grad_norm, committed=committed)
+                # One leaf per ``next``, the generator left unfinished until
+                # the step returns (``bench/spans.py`` times it to that point).
+                for _ in local:
+                    next(updates)
                 opt.step.add_(committed.to(opt.step.dtype))
 
                 out = {"loss": summed["metrics"]["loss"] / denom,

@@ -458,7 +458,7 @@ def test_cli_writes_repro_keys(artifacts, cell):
     assert r["collectives"]["total_bytes"] == r["hlo_analysis"]["collective_bytes"] > 0
     calls = r["hlo_analysis"]["kernel_calls"]
     want = {"train": {"flash_attention", "flash_attention_dq", "flash_attention_dkv",
-                      "rmsnorm"},
+                      "rmsnorm", "adamw_update"},
             "prefill": {"flash_attention", "rmsnorm"}, "decode": {"decode_attention", "rmsnorm"}}
     if cell.startswith("jamba"):  # batch 1 on data 2: the caches split over the sequence
         assert set(calls) == {"decode_attention_lse", "rmsnorm"}
@@ -496,9 +496,13 @@ def test_flops_closed_form(artifacts):
     formulas; the train step's are the forward's matmuls three times (the
     backward takes dX and dW of each), the kernels of the forward twice
     (remat "dots" saves the matmuls and reruns the rest of each group) but
-    the final norm once, and K2 / K3 (6 D and 8 D a pair) per layer."""
+    the final norm once, K2 / K3 (6 D and 8 D a pair) per layer, and the
+    AdamW kernel's 17 operations a parameter."""
     from repro_torch.configs import registry
     from repro_torch.configs.shapes import SHAPES
+    from repro_torch.kernels.adamw import OPS_PER_ELEMENT
+    from repro_torch.models import zoo
+    from repro_torch.tree import leaves
 
     cfg = registry.get("qwen3-1.7b", reduced=True)
     d, V = cfg.d_model, cfg.vocab_size
@@ -515,6 +519,8 @@ def test_flops_closed_form(artifacts):
     pairs = B * cfg.n_heads * T * (T + 1) // 2
     bwd = cfg.n_layers * (6 + 8) * cfg.head_dim * pairs
     final_norm = 4 * B * T * d
-    want = 3 * B * T * _matmul_flops_per_token(cfg) + 2 * (k1 + k5) - final_norm + bwd
+    n_params = sum(t.numel() for t in leaves(zoo.build(cfg, device="cpu").param_shapes()))
+    want = 3 * B * T * _matmul_flops_per_token(cfg) + 2 * (k1 + k5) - final_norm + bwd \
+        + OPS_PER_ELEMENT * n_params
     got = _read(artifacts / "one" / "single" / "qwen3-1.7b__train_4k.json")
     assert got["cost_analysis"]["flops"] == want

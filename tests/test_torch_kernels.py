@@ -163,13 +163,20 @@ def test_cpu_path_launches_no_kernel():
     ops.flash_attention(tq, tk, tk)
     ops.decode_attention(tq[:, 0], tk, tk, 4)
     ops.rmsnorm(tq, torch.ones(16))
+    w, one = torch.ones(16), torch.tensor(1.0)
+    ops.adamw_update(w.clone(), torch.zeros(16), torch.zeros(16), w.clone(), w.clone(), one,
+                     one, one, one, torch.tensor(True), b1=0.9, b2=0.95, eps=1e-8,
+                     weight_decay=0.1)
     assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
+    assert set(ops.launch_counts()) == {"flash_attention", "flash_attention_dq",
+                                        "flash_attention_dkv", "decode_attention",
+                                        "decode_attention_lse", "rmsnorm", "adamw_update"}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
     """The launching wrappers take CUDA tensors only; the plain version is
     chosen by ops.py for CPU tensors, never as a fallback."""
-    from repro_torch.kernels import decode_attention, flash_attention, rmsnorm
+    from repro_torch.kernels import adamw, decode_attention, flash_attention, rmsnorm
 
     t = torch.zeros(1, 4, 2, 16)
     with pytest.raises(ValueError, match="CUDA"):
@@ -178,6 +185,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         decode_attention.decode_attention(t[:, 0], t, t, 2)
     with pytest.raises(ValueError, match="CUDA"):
         rmsnorm.rmsnorm(t, torch.ones(16))
+    w, one = torch.ones(16), torch.tensor(1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        adamw.adamw_update(w, w.clone(), w.clone(), None, w.clone(), one, one, one, one,
+                           torch.tensor(True), 0.9, 0.95, 1e-8, 0.1)
 
 
 # ---------------------------------------------------------------- backward

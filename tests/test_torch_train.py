@@ -195,6 +195,101 @@ def test_adamw_leaf_update_holds_four_temporaries(dtype):
         assert count.peak_bytes - base <= 4 * leaf + 64 * ALLOC
 
 
+def _gate(new, old, committed):
+    """The train step's commit gate before the fused update, as it was
+    written there: a select of new or old, copied into old."""
+    old.copy_(torch.where(committed, new.to(old.dtype), old))
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("master", [True, False])
+@pytest.mark.parametrize("committed", [True, False])
+def test_adamw_in_place_equals_leaf_update_and_gate(dtype, master, committed):
+    """``update_leaves`` with ``committed`` (the train step's form, through
+    ``ops.adamw_update``) writes p, m, v and the master weights in place
+    exactly as the functional leaf update followed by the select-and-copy
+    gate does, bit for bit; where the step did not commit it writes nothing.
+    A second leaf of another shape checks that the leaves stay in order."""
+    cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10, master_weights=master)
+    gen = torch.Generator().manual_seed(7)
+    shapes = {"a": (300, 7), "b": (13,)}
+    p = {k: torch.randn(s, generator=gen).to(dtype) for k, s in shapes.items()}
+    g = {k: torch.randn(s, generator=gen).to(dtype) for k, s in shapes.items()}
+    state = adamw.init(cfg, p)._replace(
+        m={k: torch.randn(s, generator=gen) for k, s in shapes.items()},
+        v={k: torch.rand(s, generator=gen) for k, s in shapes.items()},
+        step=torch.tensor(3, dtype=torch.int32))
+    norm, c = torch.tensor(2.5), torch.tensor(committed)
+
+    def copy(tree):
+        return None if tree is None else {k: t.clone() for k, t in tree.items()}
+
+    before = (copy(p), copy(state.m), copy(state.v), copy(state.master))
+    want = (copy(p), copy(state.m), copy(state.v), copy(state.master))
+    for k, (m_new, v_new, p32_new) in zip(shapes, adamw.update_leaves(cfg, g, state, p,
+                                                                      grad_norm=norm)):
+        _gate(p32_new.to(dtype), want[0][k], c)
+        _gate(m_new, want[1][k], c)
+        _gate(v_new, want[2][k], c)
+        if master:
+            _gate(p32_new, want[3][k], c)
+    got = adamw.update_leaves(cfg, g, state, p, grad_norm=norm, committed=c)
+    assert [next(got) for _ in shapes] == [None, None]
+    assert (state.master is None) == (want[3] is None) == (not master)
+    for tree_got, tree_want, tree_before in zip((p, state.m, state.v, state.master), want,
+                                                before):
+        for k in (tree_got or {}):
+            assert torch.equal(_bits(tree_got[k]), _bits(tree_want[k]))
+            assert torch.equal(_bits(tree_got[k]), _bits(tree_before[k])) != committed
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adamw_op_traces_on_fake_tensors(dtype, monkeypatch):
+    """The kernel's custom op on fake tensors: nothing built, no launch
+    counted, one kernel call counted with the work formula's operations and
+    bytes (28 bytes an element for bf16 with master weights, 32 for fp32),
+    no tensor returned, and m, v, master and p declared written (g and the
+    step's scalars read only)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch.hlo_analysis import Count
+
+    def no_build(*a, **k):
+        raise AssertionError("built a kernel on fake tensors")
+
+    monkeypatch.setattr(build, "library", no_build)
+    monkeypatch.setattr(build, "build", no_build)
+    ops.reset_launches()
+    n = 1000
+    per = {torch.bfloat16: 28, torch.float32: 32}[dtype]
+    with FakeTensorMode():
+        g, p = (torch.empty(n, dtype=dtype, device="meta") for _ in range(2))
+        m, v, master = (torch.empty(n, device="meta") for _ in range(3))
+        scalars = [torch.empty((), device="meta") for _ in range(4)]
+        c = torch.empty((), dtype=torch.bool, device="meta")
+        count = Count()
+        with count:
+            out = ops.adamw_update(g, m, v, master, p, *scalars, c, b1=0.9, b2=0.95, eps=1e-8,
+                                   weight_decay=0.1)
+            ops.adamw_update(g, m, v, None, p, *scalars, c, b1=0.9, b2=0.95, eps=1e-8,
+                             weight_decay=0.1)
+    assert out is None
+    assert count.kernel_calls == {"adamw_update": 2}
+    no_master = 2 * dtype.itemsize + 16 + dtype.itemsize
+    assert (count.flops, count.bytes_accessed) == (2 * 17 * n, n * (per + no_master))
+    assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
+    schema = torch.ops.repro_torch.adamw_update.default._schema
+    written = {a.name for a in schema.arguments if a.alias_info is not None
+               and a.alias_info.is_write}
+    assert written == {"m", "v", "master", "p"}
+    assert schema.returns == []
+
+
 def test_adamw_converges_quadratic():
     cfg = adamw.AdamWConfig(lr=0.1, warmup_steps=0, total_steps=200, weight_decay=0.0,
                             clip_norm=10.0)
