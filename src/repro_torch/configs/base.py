@@ -15,7 +15,9 @@ from typing import Optional, Tuple
 class MoEConfig:
     n_experts: int
     top_k: int
-    capacity_factor: float = 1.25
+    # None: dropless, every (token, choice) pair reaches its expert (the
+    # choices sorted by expert, one grouped product per weight).
+    capacity_factor: Optional[float] = 1.25
     every_n_layers: int = 1        # MoE FFN on layers where (l % every_n == every_n-1)
     router_z_coef: float = 1e-3
     aux_loss_coef: float = 1e-2
@@ -23,6 +25,18 @@ class MoEConfig:
     # O(S*K*d) movement. "einsum": GShard dense one-hot (O(S*E*C*d) FLOPs),
     # kept as the reference baseline. Numerically identical routing.
     dispatch: str = "scatter"
+    # Renormalise the top-k gates over the k (repro's); False keeps the
+    # softmax probabilities as they are (Jamba's block).
+    norm_topk: bool = True
+    # (first, count) of the experts this rank holds, one rank's share of an
+    # expert-parallel deployment; None holds all n_experts. The router
+    # keeps its n_experts outputs and the layer computes the held experts'
+    # part of the result.
+    held: Optional[Tuple[int, int]] = None
+
+    @property
+    def n_held(self) -> int:
+        return self.n_experts if self.held is None else self.held[1]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +50,9 @@ class SSMConfig:
     proj_factor_mlstm: float = 2.0
     proj_factor_slstm: float = 4.0 / 3.0
     chunk_size: int = 256          # chunked-parallel mLSTM
+    # mamba: RMSNorms on dt, B and C after x_proj (Jamba's dt / b / c
+    # layernorms), scales dt_norm (dt_rank,), b_norm and c_norm (d_state,).
+    inner_norms: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,6 +142,8 @@ class ArchConfig:
                 total += d_in * s.d_state + d_in         # A_log, D
                 total += d_in * c.d_model                # out_proj
                 total += c.d_model                       # norm
+                if s.inner_norms:
+                    total += dt_rank + 2 * s.d_state     # dt, B, C norms
                 total += self._ffn_params(moe_mask[l])
             elif kind in ("mlstm", "slstm"):
                 s = c.ssm or SSMConfig()
@@ -148,7 +167,7 @@ class ArchConfig:
         n_mats = 3 if c.activation == "swiglu" else 2
         per_expert = n_mats * c.d_model * c.d_ff
         if is_moe and c.moe is not None:
-            return c.moe.n_experts * per_expert + c.d_model * c.moe.n_experts
+            return c.moe.n_held * per_expert + c.d_model * c.moe.n_experts
         return per_expert
 
     def active_param_count(self) -> int:
@@ -160,5 +179,5 @@ class ArchConfig:
         moe_layers = sum(self.moe_layer_mask())
         n_mats = 3 if c.activation == "swiglu" else 2
         per_expert = n_mats * c.d_model * c.d_ff
-        total -= moe_layers * (c.moe.n_experts - c.moe.top_k) * per_expert
+        total -= moe_layers * (c.moe.n_held - min(c.moe.top_k, c.moe.n_held)) * per_expert
         return total

@@ -2,10 +2,12 @@
 launcher, the same ten archs as ``repro``'s registry.
 
 Attention models, dense and MoE, the hybrid jamba-v0.1-52b (Mamba + attention
-+ MoE) and the recurrent xlstm-1.3b (mLSTM + sLSTM). Two run on one card only
-reduced: llama4-scout-17b-a16e (101.7 B parameters at full width) and
-jamba-v0.1-52b (51.6 B); a full-width run of either needs the multi-rank data
-plane (ROADMAP queue A)."""
++ MoE) and the recurrent xlstm-1.3b (mLSTM + sLSTM). llama4-scout-17b-a16e
+(101.7 B parameters) runs on one card only cut in depth; a whole run needs
+the multi-rank data plane (ROADMAP queue A). jamba-v0.1-52b (51.6 B) runs at
+its full width and all 32 layers as one card's share of an expert-parallel
+deployment, 8 of its 16 experts held (``MoEConfig.held``; the benchmark's
+AI21-Jamba2-Mini, 29.0 B)."""
 from __future__ import annotations
 
 import importlib

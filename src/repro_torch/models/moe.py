@@ -24,8 +24,27 @@ counts the (token, choice) pairs routed and those dropped past capacity
 (``moe.choices``, ``moe.dropped``; the rematerialised forward recomputes
 the same routing and is not counted again).
 
+Dropless routing (``capacity_factor=None``): no capacity and no slots;
+every (token, choice) pair reaches its expert. ``_sort`` orders the pairs
+by expert (a stable sort, the groups' ends found by ``searchsorted``, all
+on the device), the held experts' rows are gathered once, and each of the
+three weights is one grouped product over the experts' rows
+(``torch._grouped_mm`` for bf16; one product an expert otherwise). The
+combine adds each pair's gated row into its token in fp32. Nothing is read
+on the host, so a decode step runs under sync debug mode "error". Spans:
+``moe.gates``, ``moe.sort``, ``moe.experts``, ``moe.combine``.
+
+``norm_topk=False`` keeps the top-k softmax probabilities as the gates
+(Jamba's block) instead of renormalising them over the k.
+
 Auxiliary losses (Switch Transformer): the load-balance loss on the top-1
 choice fractions and the router z-loss, returned to the caller.
+
+A share of the experts (``held`` = (first, count)): this rank's leaves hold
+those experts alone, the router keeps all n_experts outputs, and the layer
+returns the held experts' part of the result, with no sum over ranks: one
+card's share of an expert-parallel deployment, without its exchange. The
+counter ``moe.held`` counts the pairs routed to held experts.
 
 Expert parallelism (``tp``): where the expert leaves split over "model",
 a rank holds experts [i E/M, (i + 1) E/M). The router and the routing run
@@ -54,14 +73,14 @@ Params = Dict[str, Any]
 
 def init_moe(cfg: ArchConfig, gen: torch.Generator, dtype=torch.bfloat16) -> Params:
     assert cfg.moe is not None
-    E = cfg.moe.n_experts
+    E = cfg.moe.n_held
 
     def stack(in_dim, out_dim):
         return torch.stack([_dense_init(gen, in_dim, out_dim, dtype) for _ in range(E)])
 
     # Expert weights carry an "_e" suffix, as in repro, to tell the (E, d, f)
     # expert tensors apart from a stacked dense FFN (G, d, f).
-    p: Params = {"router": _dense_init(gen, cfg.d_model, E, torch.float32)}
+    p: Params = {"router": _dense_init(gen, cfg.d_model, cfg.moe.n_experts, torch.float32)}
     if cfg.activation == "swiglu":
         p["w_gate_e"] = stack(cfg.d_model, cfg.d_ff)
         p["w_up_e"] = stack(cfg.d_model, cfg.d_ff)
@@ -105,11 +124,12 @@ def route(cfg: ArchConfig, router: torch.Tensor, xt: torch.Tensor, C: int) -> Ro
 
 def _gates(cfg: ArchConfig, router: torch.Tensor, xt: torch.Tensor):
     """fp32 router logits from ``x.float() @ router``, softmax, top-k of the
-    probabilities, the chosen gates renormalised."""
+    probabilities, the chosen gates renormalised (``norm_topk``)."""
     logits = xt.float() @ router
     probs = torch.softmax(logits, dim=-1)
     gates, expert_idx = torch.topk(probs, cfg.moe.top_k, dim=-1)
-    gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
+    if cfg.moe.norm_topk:
+        gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
     return logits, probs, gates, expert_idx
 
 
@@ -179,6 +199,34 @@ def _combine(cfg: ArchConfig, r: Routing, ye: torch.Tensor, how: torch.Tensor,
     return y.to(ye.dtype) if tp is None else reduce_from_model(tp, y, ye.dtype)
 
 
+def _experts(cfg: ArchConfig, p: Params, tp: Optional[ModelParallel]):
+    """(tp, experts): the "model" group to sum partials over (None where the
+    experts are not split over it) and (first, count) of the experts this
+    rank holds (None: all of them)."""
+    m, n_local = cfg.moe, p["w_up_e"].shape[-3]
+    if m.held is not None:
+        if tp is not None and n_local < m.held[1]:
+            raise NotImplementedError(f"{cfg.name}: a held share of experts split over 'model'")
+        return None, m.held
+    if tp is None or n_local == m.n_experts:
+        return None, None
+    return tp, (tp.index * n_local, n_local)
+
+
+def _aux(cfg: ArchConfig, logits: torch.Tensor, probs: torch.Tensor,
+         choice0: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The load-balance loss on the top-1 choices ``choice0`` (S, E) and the
+    router z-loss."""
+    m = cfg.moe
+    me = choice0.mean(dim=0)   # fraction routed (top-1)
+    pe = probs.mean(dim=0)     # mean router probability
+    return {
+        "moe_load_balance": torch.sum(me * pe) * m.n_experts * m.aux_loss_coef,
+        "moe_router_z": torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
+        * m.router_z_coef,
+    }
+
+
 def apply_moe(cfg: ArchConfig, p: Params, x: torch.Tensor, with_aux: bool = True,
               tp: Optional[ModelParallel] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -186,6 +234,8 @@ def apply_moe(cfg: ArchConfig, p: Params, x: torch.Tensor, with_aux: bool = True
     S = B·T tokens of this call. ``with_aux=False`` leaves the aux losses
     out (an empty dict): a cached serve step never reads them, as XLA drops
     them from repro's jitted prefill and decode."""
+    if cfg.moe.capacity_factor is None:
+        return _apply_dropless(cfg, p, x, with_aux, tp)
     m = cfg.moe
     B, T, d = x.shape
     C = _capacity(cfg, B * T)
@@ -194,13 +244,13 @@ def apply_moe(cfg: ArchConfig, p: Params, x: torch.Tensor, with_aux: bool = True
     if tracing.counting():
         tracing.count("moe.choices", r.keep.numel())
         tracing.count("moe.dropped", r.keep.numel() - r.keep.sum())
-    n_local = p["w_up_e"].shape[-3]
-    if tp is None or n_local == m.n_experts:
-        tp, experts = None, None
-    else:
-        experts = (tp.index * n_local, n_local)
+    tp, experts = _experts(cfg, p, tp)
+    if tp is not None:
         xt, gates = copy_to_model(tp, xt, r.gates)
         r = r._replace(gates=gates)
+    if experts is not None and tracing.counting():
+        lo, n = experts
+        tracing.count("moe.held", ((r.expert_idx >= lo) & (r.expert_idx < lo + n)).sum())
     with tracing.span("moe.dispatch"):
         xe, how = _dispatch(cfg, r, xt, C, experts)
     with tracing.span("moe.experts"):
@@ -212,13 +262,74 @@ def apply_moe(cfg: ArchConfig, p: Params, x: torch.Tensor, with_aux: bool = True
     with tracing.span("moe.combine"):
         y = _combine(cfg, r, ye, how, tp)
 
-    aux: Dict[str, torch.Tensor] = {}
-    if with_aux:
-        me = r.choice[:, 0, :].mean(dim=0)  # fraction routed (top-1)
-        pe = r.probs.mean(dim=0)            # mean router probability
-        aux = {
-            "moe_load_balance": torch.sum(me * pe) * m.n_experts * m.aux_loss_coef,
-            "moe_router_z": torch.mean(torch.square(torch.logsumexp(r.logits, dim=-1)))
-            * m.router_z_coef,
-        }
+    aux = _aux(cfg, r.logits, r.probs, r.choice[:, 0, :]) if with_aux else {}
+    return y.reshape(B, T, d), aux
+
+
+# ---------------------------------------------------------------- dropless
+
+
+def _sort(expert_idx: torch.Tensor, lo: int, n: int):
+    """The (token, choice) pairs ordered by expert: (order, offs, held) with
+    ``order`` (S K,) the flat pair index of each sorted row, ``offs`` (n,)
+    int32 the end of each held expert's rows, ``held`` (S K,) whether the
+    sorted row's expert is held. Pairs of other experts sort after the
+    held ones. Nothing is read on the host."""
+    key = expert_idx.reshape(-1) - lo
+    key = torch.where((key >= 0) & (key < n), key, torch.full_like(key, n))
+    sorted_key, order = torch.sort(key, stable=True)
+    offs = torch.searchsorted(sorted_key, torch.arange(n, device=key.device), right=True)
+    return order, offs.to(torch.int32), sorted_key < n
+
+
+def _grouped(xs: torch.Tensor, w: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
+    """Row block g of ``xs`` (the rows below ``offs[g]``, from ``offs[g -
+    1]``) times ``w[g]``, for every g: one ``torch._grouped_mm`` for bf16.
+    The rows past ``offs[-1]`` are left undefined there (the caller masks
+    them); other types run a product an expert, reading ``offs`` on the
+    host, and give those rows 0."""
+    if xs.dtype == torch.bfloat16:
+        return torch._grouped_mm(xs, w, offs=offs)
+    out = xs.new_zeros((xs.shape[0], w.shape[-1]))
+    start = 0
+    for g, end in enumerate(offs.tolist()):
+        if end > start:
+            out[start:end] = xs[start:end] @ w[g]
+        start = end
+    return out
+
+
+def _apply_dropless(cfg: ArchConfig, p: Params, x: torch.Tensor, with_aux: bool,
+                    tp: Optional[ModelParallel]
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``apply_moe`` with no capacity (module docstring)."""
+    m = cfg.moe
+    B, T, d = x.shape
+    xt = x.reshape(B * T, d)
+    with tracing.span("moe.gates"):
+        logits, probs, gates, expert_idx = _gates(cfg, p["router"], xt)
+    tp, experts = _experts(cfg, p, tp)
+    lo, n = (0, m.n_experts) if experts is None else experts
+    if tp is not None:
+        xt, gates = copy_to_model(tp, xt, gates)
+    with tracing.span("moe.sort"):
+        order, offs, held = _sort(expert_idx, lo, n)
+        tok = torch.div(order, m.top_k, rounding_mode="floor")
+        xs = xt.index_select(0, tok)                                    # (S K, d)
+    if tracing.counting():
+        tracing.count("moe.choices", expert_idx.numel())
+        tracing.count("moe.held", held.sum())
+    with tracing.span("moe.experts"):
+        if cfg.activation == "swiglu":
+            h = F.silu(_grouped(xs, p["w_gate_e"], offs)) * _grouped(xs, p["w_up_e"], offs)
+        else:
+            h = F.gelu(_grouped(xs, p["w_up_e"], offs), approximate="tanh")
+        ys = _grouped(h, p["w_down_e"], offs)
+    with tracing.span("moe.combine"):
+        g = gates.reshape(-1).index_select(0, order)
+        rows = torch.where(held[:, None], ys.float() * g[:, None], 0.0)
+        y = torch.zeros((B * T, d), dtype=torch.float32, device=x.device).index_add_(0, tok, rows)
+        y = y.to(x.dtype) if tp is None else reduce_from_model(tp, y, x.dtype)
+    aux = _aux(cfg, logits, probs, _one_hot(expert_idx[:, 0], m.n_experts, torch.float32)
+               ) if with_aux else {}
     return y.reshape(B, T, d), aux

@@ -32,6 +32,12 @@ the sLSTM adds its gate biases to the input projections before the
 recurrent product (repro adds them after), and runs its four gates' products
 as one.
 
+Mamba's inner norms (``SSMConfig.inner_norms``, Jamba's; off in ``repro``):
+RMSNorms with fp32 scales ``dt_norm``, ``b_norm``, ``c_norm`` on dt, B and C
+after ``x_proj``'s split, before ``dt_proj`` and the scan, in every path
+(train, prefill, decode). The chunk loop of the scan runs in the span
+``ssm.scan``, inside the block's ``ssm.mamba``.
+
 Tensor parallelism (``tp``, a ``collective.ModelParallel``; None on one
 rank): each mixer computes on this rank's slices of its leaves as
 ``runtime/sharding.py`` cuts them, with the region operators of
@@ -51,6 +57,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig, SSMConfig
 from repro_torch.core.collective import (ModelParallel, Ranges, acc_dtype, copy_to_model,
                                          exchange_model, reduce_from_model, tiles)
@@ -100,7 +107,12 @@ def init_mamba(cfg: ArchConfig, gen: torch.Generator, dtype=torch.bfloat16) -> P
     u = torch.rand((d_in,), generator=gen, device=dev, dtype=torch.float32)
     dt = torch.exp(u * (math.log(0.1) - math.log(0.001)) + math.log(0.001))
     inv_softplus_dt = dt + torch.log(-torch.expm1(-dt))
+    norms = {}
+    if s.inner_norms:
+        norms = {k: torch.ones((n,), dtype=torch.float32, device=dev)
+                 for k, n in (("dt_norm", dt_rank), ("b_norm", N), ("c_norm", N))}
     return {
+        **norms,
         "in_proj": _dense_init(gen, cfg.d_model, 2 * d_in, dtype),
         "conv_w": (_normal(gen, (s.d_conv, d_in)) * 0.1).to(dtype),
         "conv_b": torch.zeros((d_in,), dtype=dtype, device=dev),
@@ -124,6 +136,12 @@ def _mamba_conv(p: Params, x: torch.Tensor, state: Optional[torch.Tensor]):
     out = sum(xp[:, k:k + x.shape[1], :] * p["conv_w"][k][None, None, :] for k in range(K))
     new_state = xp[:, -(K - 1):, :]
     return out + p["conv_b"][None, None, :], new_state
+
+
+def _inner_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm of dt, B or C over its last dim: fp32 statistics, in x's type."""
+    xf = x.float()
+    return (xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + eps) * scale).to(x.dtype)
 
 
 def _selective_scan_chunk(a: torch.Tensor, bx: torch.Tensor, h0: torch.Tensor):
@@ -183,6 +201,9 @@ def apply_mamba(
     if split:
         (dtbc,) = copy_to_model(tp, reduce_from_model(tp, dtbc))
     dt, Bm, Cm = torch.split(dtbc, [dt_rank, N, N], dim=-1)
+    if s.inner_norms:
+        dt, Bm, Cm = (_inner_norm(dt, p["dt_norm"]), _inner_norm(Bm, p["b_norm"]),
+                      _inner_norm(Cm, p["c_norm"]))
     acc = acc_dtype(x.dtype)
     delta = F.softplus((dt @ p["dt_proj"]).to(acc) + p["dt_bias"][None, None, :])
     A = -torch.exp(p["A_log"])  # (d_in, N)
@@ -191,14 +212,15 @@ def apply_mamba(
     h = (torch.zeros((B, xb.shape[-1], N), dtype=acc, device=x.device)
          if state is None else state["h"])
     ys = []
-    for i in range(0, T, chunk):
-        d_c, x_c = delta[:, i:i + chunk], xb32[:, i:i + chunk]
-        B_c, C_c = Bm32[:, i:i + chunk], Cm32[:, i:i + chunk]
-        a = torch.exp(d_c[..., None] * A[None, None])             # (B,c,d_in,N)
-        bx = (d_c * x_c)[..., None] * B_c[:, :, None, :]          # (B,c,d_in,N)
-        h_all, h = _selective_scan_chunk(a, bx, h)
-        ys.append(torch.einsum("bcdn,bcn->bcd", h_all, C_c))
-    y = torch.cat(ys, dim=1)
+    with tracing.span("ssm.scan"):
+        for i in range(0, T, chunk):
+            d_c, x_c = delta[:, i:i + chunk], xb32[:, i:i + chunk]
+            B_c, C_c = Bm32[:, i:i + chunk], Cm32[:, i:i + chunk]
+            a = torch.exp(d_c[..., None] * A[None, None])             # (B,c,d_in,N)
+            bx = (d_c * x_c)[..., None] * B_c[:, :, None, :]          # (B,c,d_in,N)
+            h_all, h = _selective_scan_chunk(a, bx, h)
+            ys.append(torch.einsum("bcdn,bcn->bcd", h_all, C_c))
+        y = torch.cat(ys, dim=1)
     y = y + xb32 * p["D"][None, None, :]
     y = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
     if split:

@@ -28,6 +28,46 @@ COPIED = (
 )
 # The only edits a copy may carry: (original text, text in the copy).
 HUNKS = {
+    # The port's switches for Jamba's block (dropless routing, the gate left
+    # unrenormalised, a held share of the experts, Mamba's inner norms), each
+    # defaulting to repro's behaviour, and the parameter counts of a share.
+    "configs/base.py": [
+        ("""    capacity_factor: float = 1.25
+""", """    # None: dropless, every (token, choice) pair reaches its expert (the
+    # choices sorted by expert, one grouped product per weight).
+    capacity_factor: Optional[float] = 1.25
+"""),
+        ("""    dispatch: str = "scatter"
+""", """    dispatch: str = "scatter"
+    # Renormalise the top-k gates over the k (repro's); False keeps the
+    # softmax probabilities as they are (Jamba's block).
+    norm_topk: bool = True
+    # (first, count) of the experts this rank holds, one rank's share of an
+    # expert-parallel deployment; None holds all n_experts. The router
+    # keeps its n_experts outputs and the layer computes the held experts'
+    # part of the result.
+    held: Optional[Tuple[int, int]] = None
+
+    @property
+    def n_held(self) -> int:
+        return self.n_experts if self.held is None else self.held[1]
+"""),
+        ("""    chunk_size: int = 256          # chunked-parallel mLSTM
+""", """    chunk_size: int = 256          # chunked-parallel mLSTM
+    # mamba: RMSNorms on dt, B and C after x_proj (Jamba's dt / b / c
+    # layernorms), scales dt_norm (dt_rank,), b_norm and c_norm (d_state,).
+    inner_norms: bool = False
+"""),
+        ("""                total += c.d_model                       # norm
+""", """                total += c.d_model                       # norm
+                if s.inner_norms:
+                    total += dt_rank + 2 * s.d_state     # dt, B, C norms
+"""),
+        ("""            return c.moe.n_experts * per_expert + c.d_model * c.moe.n_experts""",
+         """            return c.moe.n_held * per_expert + c.d_model * c.moe.n_experts"""),
+        ("""        total -= moe_layers * (c.moe.n_experts - c.moe.top_k) * per_expert""",
+         """        total -= moe_layers * (c.moe.n_held - min(c.moe.top_k, c.moe.n_held)) * per_expert"""),
+    ],
     "core/sim.py": [(
         '''        if self.backend == "jax":
             import jax

@@ -127,6 +127,8 @@ def test_prefill_and_decode_ops_with_tracing_off_and_on(arch):
     assert [s.name for s in got.spans if s.name.startswith("serve.")] == [
         "serve.prefill", "serve.decode"]
     mixers = {f"ssm.{k}" for k in cfg.block_types() if k != "attn"}
+    if "mamba" in cfg.block_types():  # Mamba's chunk loop, inside ssm.mamba
+        mixers.add("ssm.scan")
     assert {s.name for s in got.spans if s.name.startswith("ssm.")} == mixers
     if cfg.moe is None:
         assert on == off and got.counts == {}
