@@ -52,7 +52,17 @@ non-zero exit:
      402,653,184-element expert leaf), granite's 12 leaves updated by the
      train step's loop under ``torch.cuda.set_sync_debug_mode("error")``,
      and timed there beside the bound, the plain path and
-     ``torch._fused_adamw_`` (a yardstick the port never calls);
+     ``torch._fused_adamw_`` (a yardstick the port never calls); then
+     Mamba's selective-scan kernel against its plain version (the doubling
+     scan) at jamba's prefill (2 x 8,192 tokens, d_in 8,192, N 16) and a
+     decode step (T = 1), and at reduced shapes (``SCAN_CASES``: N 4 and
+     5, d_in not a multiple of 32, T not a multiple of 32, from the zero
+     state and from a carried one, z, B and C strided views), y at the
+     kernels' tolerances in bf16 and at atol / rtol 1e-4 in fp32 and for
+     the fp32 state (``check_selective_scan``: the order of the sums); its
+     autograd Function's gradients against autograd through the plain
+     version (``SCAN_GRAD_CASES``); timed at the prefill beside its bound
+     and the plain version;
   4. serve-path parity: qwen3-1.7b at full width with 2 layers in float32
      serves 2 ragged requests (prefill + 4 decode steps) on the card through
      the kernels and on the CPU through the plain versions; logits agree
@@ -1021,6 +1031,139 @@ def check_adamw(dev, timer):
                 bound=(nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
 
 
+# ----------------------------------------- phase 3: Mamba's selective scan
+
+# rows, T, d_in, N, carried state: jamba's prefill and a decode step, then
+# reduced shapes (N padded to the lanes' states, a ragged channel tile and
+# token tile).
+SCAN_PREFILL = (2, 8192, 8192, 16, False)
+SCAN_CASES = (SCAN_PREFILL, (2, 1, 8192, 16, True), (2, 300, 8192, 16, True),
+              (3, 77, 100, 4, True), (1, 33, 40, 5, False), (2, 1, 50, 16, False))
+# rows, T, d_in, N, carried, chunk: SelectiveScanFn's gradients over several
+# chunks with a ragged last one, from a carried state and from zeros.
+SCAN_GRAD_CASES = ((2, 300, 96, 16, True, 128), (1, 40, 70, 4, False, 16))
+# The card's exp rate on the SFU alone: 16 a clock an SM (the throughput
+# table of NVIDIA's CUDA C++ Programming Guide, compute capability 9.0), 132
+# SMs, 1.98 GHz at most. Not a bound: exps can also run on the FMA pipes.
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
+# fp32 tolerance of the scan: the kernel sums over the states and runs the
+# recurrence token after token, the plain version by a doubling scan and an
+# einsum; each step's exp is ex2.approx (~2 ulp). Over thousands of tokens
+# that moves y and h by ~1e-6 of their size; 1e-4 leaves that room and none
+# for a missing or doubled term.
+SCAN_TOL = (1e-4, 1e-4)
+
+
+def scan_args(gen, rows, T, d, N, carried, dtype):
+    """The scan's arguments at one shape, as ``apply_mamba`` hands them
+    over: dt_proj's output, dt_bias as Mamba initialises it (softplus of it
+    in [1e-3, 0.1]), x, A_log around log(1..N) (S4D-real), B and C as views
+    of an x_proj output [dt | B | C], D, z as the view of an in_proj output
+    [x | z], the carried state or None."""
+    dev = gen.device
+
+    def rn(*shape, dt=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    u = torch.rand((d,), generator=gen, device=dev)
+    dt0 = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+    xz, dtbc = rn(rows, T, 2 * d, dt=dtype), rn(rows, T, 8 + 2 * N, dt=dtype)
+    return (rn(rows, T, d, dt=dtype), dt0 + torch.log(-torch.expm1(-dt0)),
+            rn(rows, T, d, dt=dtype),
+            torch.log(torch.arange(1, N + 1, device=dev, dtype=torch.float32))[None]
+            + 0.1 * rn(d, N), dtbc[..., 8:8 + N], dtbc[..., 8 + N:], 1 + 0.1 * rn(d),
+            xz[..., d:], rn(rows, d, N) if carried else None)
+
+
+def check_scan_grads(gen, rows, T, d, N, carried, chunk, dtype, errs):
+    """``SelectiveScanFn`` under autograd at one shape: one kernel launch,
+    y equal to the no-grad kernel's, and the gradient of every input
+    against ``torch.autograd.grad`` through ``ref.selective_scan``, for a
+    loss that weighs y and the new state."""
+    from repro_torch.kernels import ops, ref
+
+    args = scan_args(gen, rows, T, d, N, carried, dtype)
+    leaves = [None if t is None else t.detach().clone().requires_grad_(True) for t in args]
+    w_y = torch.randn(args[2].shape, generator=gen, device=gen.device).to(dtype)
+    w_h = torch.randn((rows, d, N), generator=gen, device=gen.device)
+    grads = []
+    for name, fn in (("kernel", lambda *a: ops.selective_scan(*a, chunk=chunk)),
+                     ("plain", lambda *a: ref.selective_scan(*a, chunk))):
+        ops.reset_launches()
+        y, h = fn(*leaves)
+        if name == "kernel":
+            if ops.launch_counts()["selective_scan"] != 1:
+                fail(f"SelectiveScanFn: {ops.launch_counts()['selective_scan']} launches a "
+                     f"call")
+            with torch.no_grad():
+                wy, _ = ops.selective_scan(*args, chunk=chunk)
+            if not torch.equal(y, wy):
+                fail("SelectiveScanFn: y differs from the no-grad kernel's")
+        loss = (y.float() * w_y.float()).sum() + (h * w_h).sum()
+        grads.append(torch.autograd.grad(loss, [t for t in leaves if t is not None]))
+    tag = f"rows {rows} T {T} d_in {d} N {N} chunk {chunk}{' carried' if carried else ''}"
+    names = ("dt", "dt_bias", "x", "A_log", "B", "C", "D", "z", "h")
+    for name, got, want in zip(names, *grads):
+        check(f"SelectiveScanFn d{name} {tag}", got, want, got.dtype, errs["selective_scan"],
+              SCAN_TOL if got.dtype == torch.float32 else None)
+    torch.cuda.synchronize()
+
+
+def check_selective_scan(dev, errs):
+    """The selective-scan kernel (``kernels/selective_scan.py``) against its
+    plain version (``ref.selective_scan``, chunks of 256 as jamba's) at
+    every case of ``SCAN_CASES``, in fp32 and bf16: y at ``SCAN_TOL`` in fp32
+    and the kernels' bf16 tolerance (the same roundings to bf16, a near tie
+    rounding the other way), the fp32 state at ``SCAN_TOL``. Then
+    ``SelectiveScanFn`` at ``SCAN_GRAD_CASES``: one launch a call, y as the
+    kernel's, and every input's gradient against autograd through
+    ``ref.selective_scan`` (the same arithmetic, chunk by chunk: fp32 at
+    ``SCAN_TOL``, bf16 at the kernels' tolerance). Returns the kernel's
+    entry at jamba's prefill (bf16), with its bound: the bytes or the fp32
+    operations, whichever is longer; the SFU's time for the exps alone is
+    logged beside it."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import selective_scan as kss
+
+    gen = torch.Generator(device=dev).manual_seed(30)
+    for dtype in (torch.float32, torch.bfloat16):
+        log(f"phase 3: selective_scan vs plain version, {dtype}")
+        for rows, T, d, N, carried in SCAN_CASES:
+            args = scan_args(gen, rows, T, d, N, carried, dtype)
+            ops.reset_launches()
+            y, h = ops.selective_scan(*args, chunk=min(T, 256))
+            torch.cuda.synchronize()
+            if ops.launch_counts()["selective_scan"] != 1:
+                fail(f"selective_scan: {ops.launch_counts()['selective_scan']} launches a call")
+            wy, wh = ref.selective_scan(*args, min(T, 256))
+            tag = f"rows {rows} T {T} d_in {d} N {N}{' carried' if carried else ''}"
+            check(f"selective_scan y {tag}", y, wy, dtype, errs["selective_scan"],
+                  SCAN_TOL if dtype == torch.float32 else None)
+            check(f"selective_scan h {tag}", h, wh, torch.float32, errs["selective_scan"],
+                  SCAN_TOL)
+            del args, y, h, wy, wh
+        for rows, T, d, N, carried, chunk in SCAN_GRAD_CASES:
+            check_scan_grads(gen, rows, T, d, N, carried, chunk, dtype, errs)
+    bf = torch.bfloat16
+    args = scan_args(gen, *SCAN_PREFILL, bf)
+    step = scan_args(gen, 2, 1, 8192, 16, True, bf)
+    rows, T, d, N, _ = SCAN_PREFILL
+    ops_n, nbytes = kss.work(args[2], args[4])
+    bounds = [(nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+              (ops_n / PEAK_OPS[torch.float32] * 1e3, "operations")]
+    t_step = Timer(dev).device_ms(lambda: ops.selective_scan(*step, chunk=1))
+    log(f"phase 3: timing selective_scan at jamba's prefill ({rows} x {T} tokens, d_in {d}, "
+        f"N {N}), bf16; the exps on the SFU alone would take "
+        f"{rows * T * d * N / SFU_EXP_PER_S * 1e3:.4f} ms; a decode step (T = 1) takes "
+        f"{t_step:.4f} device ms")
+    return dict(name="selective_scan", route="cuda",
+                source="src/repro_torch/csrc/selective_scan.cu",
+                replaces="none (repro scans with jax.lax.associative_scan)",
+                fn=lambda: ops.selective_scan(*args, chunk=256),
+                plain=lambda: ref.selective_scan(*args, 256), plain_reps=3, library=None,
+                bound=max(bounds))
+
+
 # ------------------------------------ the MoE layer and the mixers, observed
 
 # The program's spans (``repro_torch/tracing.py``) that ``stage_split`` reads:
@@ -1209,21 +1352,24 @@ def serve_launches(cfg, steps, split=False):
     """Launches of one prefill and ``steps`` decode steps: K1 once per
     attention layer in the prefill, K4 once per attention layer and step (its
     log-sum-exp variant where the cache is split over the sequence), K5 as
-    ``rmsnorms_per_forward`` counts for every forward."""
+    ``rmsnorms_per_forward`` counts for every forward, the selective scan
+    once per Mamba layer and forward."""
     from repro_torch.kernels import ops
 
     want = {name: 0 for name in ops.KERNELS}
     want.update({"flash_attention": attn_layers(cfg),
                  "decode_attention_lse" if split else "decode_attention":
                  attn_layers(cfg) * steps,
-                 "rmsnorm": rmsnorms_per_forward(cfg) * (steps + 1)})
+                 "rmsnorm": rmsnorms_per_forward(cfg) * (steps + 1),
+                 "selective_scan": cfg.block_types().count("mamba") * (steps + 1)})
     return want
 
 
 def train_launches(cfg):
     """Launches of one train step with remat "dots": each group's forward
-    runs again in the backward, so K1 and K5 launch twice per layer (the
-    final norm once); K2 and K3 once per attention layer; the AdamW kernel
+    runs again in the backward, so K1, K5 and the selective scan launch
+    twice per layer (the final norm once); K2 and K3 once per attention
+    layer (the scan's backward is the plain version); the AdamW kernel
     once per leaf of the parameter tree (a rank's shard of each leaf on a
     mesh)."""
     from repro_torch.kernels import ops
@@ -1234,7 +1380,8 @@ def train_launches(cfg):
     norms = rmsnorms_per_forward(cfg)
     want.update(flash_attention=2 * attn_layers(cfg), flash_attention_dq=attn_layers(cfg),
                 flash_attention_dkv=attn_layers(cfg), rmsnorm=2 * norms - 1 if norms else 0,
-                adamw_update=len(leaves(zoo.build(cfg, device="cpu").param_shapes())))
+                adamw_update=len(leaves(zoo.build(cfg, device="cpu").param_shapes())),
+                selective_scan=2 * cfg.block_types().count("mamba"))
     return want
 
 
@@ -1414,6 +1561,7 @@ KERNEL_GROUPS = (  # (group, substrings of the CUDA kernel name)
     ("flash_attention_dkv", ("dkv_kernel",)),
     ("decode_attention", ("decode_kernel",)),
     ("rmsnorm", ("rmsnorm_kernel",)),
+    ("selective_scan", ("selective_scan_kernel",)),
     ("matmul", ("gemm", "Gemm", "cutlass", "xmma", "nvjet", "sm90")),
     ("all_reduce", ("nccl", "AllReduce")),
 )
@@ -3491,7 +3639,9 @@ def main() -> int:
     (fwd, fwd_d64, fwd_jamba, fwd_archs), (bwd, bwd_d64) = (check_kernels(dev, timer),
                                                             check_backward(dev, timer))
     adamw_e = timed(check_adamw(dev, timer), timer, {"adamw_update": [0.0]})
-    kernels, kernels_d64 = fwd + bwd + [adamw_e], fwd_d64 + bwd_d64
+    scan_errs = {"selective_scan": []}
+    scan_e = timed(check_selective_scan(dev, scan_errs), timer, scan_errs)
+    kernels, kernels_d64 = fwd + bwd + [adamw_e, scan_e], fwd_d64 + bwd_d64
     del timer
     counts = {}  # launches on each main path: one serve run, six train steps
     for arch, first in ((DENSE, 4), (MOE, 10)):

@@ -23,7 +23,8 @@ from typing import Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention", "rmsnorm", "adamw")
+SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention", "rmsnorm", "adamw",
+           "selective_scan")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

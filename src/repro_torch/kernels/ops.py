@@ -9,11 +9,13 @@ of K and V, unlike ``repro/kernels/ops.py``.
 
 Autograd: for CUDA tensors that need a gradient, attention goes through
 ``flash_attention.FlashAttentionFn`` (forward kernel; dQ and dK/dV kernels
-in the backward) and RMSNorm through ``rmsnorm.RMSNormFn`` (kernel forward,
-plain backward), so no kernel output ever leaves the graph. A call whose
+in the backward), RMSNorm through ``rmsnorm.RMSNormFn`` (kernel forward,
+plain backward) and Mamba's scan through ``selective_scan.SelectiveScanFn``
+(kernel forward; the plain scan run again chunk by chunk and
+differentiated), so no kernel output ever leaves the graph. A call whose
 backward the kernels do not cover (a cached attention step under grad)
-raises rather than use the plain version. CPU tensors differentiate through
-the plain versions.
+raises rather than use the plain version. CPU tensors differentiate
+through the plain versions.
 
 Launch counts: each kernel module keeps a ``launches`` counter that its
 wrapper bumps once per kernel launch and nowhere else; ``launch_counts``
@@ -22,11 +24,11 @@ reads them all and ``reset_launches`` sets them to 0.
 Each launch is a ``torch.library.custom_op`` of the ``repro_torch``
 namespace (``flash_attention_fwd``, ``flash_attention_dq``,
 ``flash_attention_dkv``, ``decode_attention``, ``decode_attention_lse``,
-``rmsnorm``, ``adamw_update``): its implementation is the launch, its fake
-implementation gives the output shapes and types (``adamw_update`` returns
-none: it declares the leaves it writes in place), so the CUDA path traces on
-fake tensors
-(``launch/dryrun.py``) with nothing built and no launch counted. Its work,
+``rmsnorm``, ``adamw_update``, ``selective_scan``): its implementation is
+the launch, its fake implementation gives the output shapes and types
+(``adamw_update`` returns none: it declares the leaves it writes in place),
+so the CUDA path traces on fake tensors (``launch/dryrun.py``) with nothing
+built and no launch counted. Its work,
 (operations, bytes) from the call's shapes and lengths, is the module's
 work formula; ``KERNEL_OPS`` maps each op to its kernel name and formula,
 and the operations are registered with ``torch.utils.flop_counter``, so
@@ -43,10 +45,12 @@ from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rms
+from repro_torch.kernels import selective_scan as _ss
 
 KERNELS = ("flash_attention", "flash_attention_dq", "flash_attention_dkv",
-           "decode_attention", "decode_attention_lse", "rmsnorm", "adamw_update")
-_COUNTERS = (_fa.launches, _dec.launches, _rms.launches, _adamw.launches)
+           "decode_attention", "decode_attention_lse", "rmsnorm", "adamw_update",
+           "selective_scan")
+_COUNTERS = (_fa.launches, _dec.launches, _rms.launches, _adamw.launches, _ss.launches)
 
 
 def _fwd_work(q, k, v, qo, kl, qo_s, kl_s, causal, scale, **_):
@@ -77,6 +81,10 @@ def _adamw_work(g, m, v, master, p, *_, **__):
     return _adamw.work(g, master, p)
 
 
+def _scan_work(dt, dt_bias, x, A_log, B, *_, **__):
+    return _ss.work(x, B)
+
+
 _r = torch.ops.repro_torch
 # op -> (kernel name, work formula over the op's arguments: (operations, bytes))
 KERNEL_OPS: Dict[object, Tuple[str, Callable]] = {
@@ -87,6 +95,7 @@ KERNEL_OPS: Dict[object, Tuple[str, Callable]] = {
     _r.decode_attention_lse: ("decode_attention_lse", _lse_work),
     _r.rmsnorm: ("rmsnorm", _rms_work),
     _r.adamw_update: ("adamw_update", _adamw_work),
+    _r.selective_scan: ("selective_scan", _scan_work),
 }
 
 
@@ -191,3 +200,22 @@ def adamw_update(g, m, v, master, p, scale, lr, b1c, b2c, committed, *, b1: floa
     for t, d in zip(held, dense):
         if d is not t:
             t.copy_(d)
+
+
+def selective_scan(dt, dt_bias, x, A_log, B, C, D, z, h, *, chunk: int):
+    """Mamba's scan (semantics of ``ref.selective_scan``, which CPU tensors
+    take, in chunks of ``chunk`` tokens): (y in x's type, the new state
+    fp32). On the card one launch whatever T is, on the views
+    ``apply_mamba`` hands over (z and B, C are column slices of products);
+    a tensor whose last dim is strided (z after a tensor-parallel exchange)
+    is copied into a contiguous one first. A call that needs a gradient
+    takes ``SelectiveScanFn``, whose backward differentiates the plain scan
+    over chunks of ``chunk``."""
+    if x.device.type == "cpu":
+        return ref.selective_scan(dt, dt_bias, x, A_log, B, C, D, z, h, chunk)
+    dt, x, B, C, z = (t if t.stride(-1) == 1 else t.contiguous() for t in (dt, x, B, C, z))
+    args = (dt, dt_bias.contiguous(), x, A_log.contiguous(), B, C, D.contiguous(), z,
+            None if h is None else h.contiguous())
+    if _needs_grad(*(t for t in args if t is not None)):
+        return _ss.SelectiveScanFn.apply(*args, chunk)
+    return _ss.selective_scan(*args)

@@ -5,7 +5,10 @@ not ``-inf``; softmax and norm statistics in fp32). ``attention`` also takes
 the optional per-batch ``q_offset`` and ``kv_len`` of
 ``repro.models.layers._sdpa``, which the cached prefill needs. ``adamw``
 follows ``repro/optim/adamw.py`` (a leaf of its update, op for op), and
-``adamw_update_`` adds the train step's commit gate. The CPU path
+``adamw_update_`` adds the train step's commit gate. ``selective_scan`` is
+Mamba's scan over chunks of a doubling (Hillis-Steele) scan;
+``selective_scan_bwd`` differentiates it chunk by chunk, the backward of
+the CUDA scan's autograd Function. The CPU path
 of ``kernels/ops.py`` runs these, and ``chip_smoke.py`` holds each CUDA or
 Triton kernel against them on the card.
 """
@@ -15,6 +18,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -255,3 +259,96 @@ def adamw_update_(g, m, v, master, p, scale, lr, b1c, b2c, committed, b1: float,
     gate(v_new, v)
     if master is not None:
         gate(p32_new, master)
+
+
+def selective_scan_chunk(a, bx, h0):
+    """h_t = a_t * h_{t-1} + bx_t within one chunk.
+
+    a, bx: (B, c, d_in, N) fp32; h0: (B, d_in, N). Returns (h_all, h_last).
+    The pairs (a, b) compose as (a_l, b_l) then (a_r, b_r) -> (a_l a_r,
+    a_r b_l + b_r); with the row (1, h0) prepended, an inclusive scan of that
+    composition leaves h in b. The scan doubles its reach each pass
+    (Hillis-Steele): ceil(log2(c + 1)) passes over shifted views."""
+    a = torch.cat([torch.ones_like(h0)[:, None], a], dim=1)
+    b = torch.cat([h0[:, None], bx], dim=1)
+    n = a.shape[1]
+    s = 1
+    while s < n:
+        b = torch.cat([b[:, :s], torch.addcmul(b[:, s:], a[:, s:], b[:, :-s])], dim=1)
+        if 2 * s < n:  # the last pass needs no new a
+            a = torch.cat([a[:, :s], a[:, s:] * a[:, :-s]], dim=1)
+        s *= 2
+    return b[:, 1:], b[:, -1]
+
+
+def selective_scan(dt, dt_bias, x, A_log, B, C, D, z, h, chunk: int):
+    """Mamba's scan from dt_proj's output ``dt``, x after the conv and SiLU,
+    B, C and z (B, T, ...) in the model's type, and A_log, dt_bias and D:
+    delta = softplus(dt + dt_bias), h_t = exp(delta_t A) h_{t-1} + (delta_t
+    x_t) B_t with A = -exp(A_log), y_t = (h_t . C_t + x_t D) rounded to the
+    model's type, times silu(z_t). Returns (y, the state after the last
+    token); h (B, d_in, N) is the carried state, None for zeros. In the
+    accumulation type (fp32, fp64 for fp64 inputs), ``selective_scan_chunk``
+    over chunks of ``chunk`` tokens: the plain version of the kernel
+    (``csrc/selective_scan.cu``), which autograd differentiates."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    delta = F.softplus(dt.to(acc) + dt_bias[None, None, :])
+    A = -torch.exp(A_log)  # (d_in, N)
+    x32, B32, C32 = x.to(acc), B.to(acc), C.to(acc)
+    if h is None:
+        h = torch.zeros((x.shape[0], x.shape[-1], A.shape[-1]), dtype=acc, device=x.device)
+    ys = []
+    for i in range(0, x.shape[1], chunk):
+        d_c, x_c = delta[:, i:i + chunk], x32[:, i:i + chunk]
+        B_c, C_c = B32[:, i:i + chunk], C32[:, i:i + chunk]
+        a = torch.exp(d_c[..., None] * A[None, None])             # (B,c,d_in,N)
+        bx = (d_c * x_c)[..., None] * B_c[:, :, None, :]          # (B,c,d_in,N)
+        h_all, h = selective_scan_chunk(a, bx, h)
+        ys.append(torch.einsum("bcdn,bcn->bcd", h_all, C_c))
+    y = torch.cat(ys, dim=1)
+    y = y + x32 * D[None, None, :]
+    return y.to(x.dtype) * F.silu(z), h
+
+
+def selective_scan_bwd(dt, dt_bias, x, A_log, B, C, D, z, h, chunk: int, dy, dh, needs):
+    """Gradients of ``selective_scan`` with respect to (dt, dt_bias, x,
+    A_log, B, C, D, z, h), None where ``needs`` (one flag each) is False,
+    from dy and dh, the gradients of y and of the last state (dh may be
+    None). The chunks' start states are computed again without a gradient;
+    then from the last chunk to the first each is run again from its start
+    state and differentiated, its start state's gradient carried to the
+    chunk before. So one chunk's graph is held at a time, and each chunk's
+    arithmetic is that of the whole scan's."""
+    args = (dt, dt_bias, x, A_log, B, C, D, z)
+    seq = (0, 2, 4, 5, 7)  # dt, x, B, C, z: sliced along the tokens
+
+    def part(i):
+        return [t[:, i:i + chunk] if k in seq else t for k, t in enumerate(args)]
+
+    starts = range(0, x.shape[1], chunk)
+    hs = [h]
+    with torch.no_grad():
+        for i in starts[:-1]:
+            hs.append(selective_scan(*part(i), hs[-1], chunk)[1])
+    grads = [torch.zeros_like(t) if n else None for t, n in zip(args, needs)] + [None]
+    for i, h0 in zip(reversed(starts), reversed(hs)):
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n) for t, n in zip(part(i), needs)]
+            h_in = None if h0 is None else h0.detach().requires_grad_(i > 0 or needs[8])
+            y, h_last = selective_scan(*ins, h_in, chunk)
+            outs, gouts = ((y, h_last), (dy[:, i:i + chunk], dh)) if dh is not None else \
+                ((y,), (dy[:, i:i + chunk],))
+            wrt = [t for t in ins + [h_in] if t is not None and t.requires_grad]
+            got = dict(zip(map(id, wrt), torch.autograd.grad(outs, wrt, gouts,
+                                                             allow_unused=True)))
+        for k, t in enumerate(ins):
+            g = got.get(id(t))
+            if g is not None:
+                if k in seq:
+                    grads[k][:, i:i + chunk] = g
+                else:
+                    grads[k] += g
+        dh = None if h_in is None else got.get(id(h_in))
+    if needs[8]:
+        grads[8] = dh
+    return tuple(grads)

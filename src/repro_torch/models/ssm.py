@@ -12,14 +12,20 @@ The sequence is processed in chunks with a recurrent carry between them (a
 Python loop where ``repro`` runs ``lax.scan``) and parallel math inside a
 chunk. Mamba's in-chunk recurrence h_t = a_t h_{t-1} + bx_t, which ``repro``
 hands to ``jax.lax.associative_scan``, is a log-depth doubling
-(Hillis-Steele) scan here. The sLSTM is a sequential scan over T, one
+(Hillis-Steele) scan in the plain version (``ref.selective_scan_chunk``),
+and token after token in the kernel. The sLSTM is a sequential scan over T, one
 ``_slstm_cell`` per step. Stabilised exponential gating follows the xLSTM
 paper (appendix A): fp32 log space with a running max stabiliser.
 
 ``repro`` has no Pallas kernel for any of these mixers (XLA compiles the
-scans), so the port has no CUDA kernel for them either: they run the same
-PyTorch on the CPU and on the card. The functions are pure: a new state is
-returned, and the stack writes it into the cache.
+scans). The port adds one: Mamba's scan is one launch of
+``kernels/selective_scan.py`` on the card, whatever T is, through
+``ops.selective_scan``, which takes CPU tensors to its plain version
+``ref.selective_scan``, the chunked doubling scan, and differentiates a
+call on the card through that plain version run again in the backward.
+The mLSTM and the sLSTM run the same PyTorch on the CPU and on the card.
+The functions are pure: a new state is returned, and the stack writes it
+into the cache.
 
 Numerics kept from ``repro``: ``_mamba_conv`` sums its K shifted products in
 the input type starting from 0; ``jnp.var`` is the population variance;
@@ -35,8 +41,9 @@ as one.
 Mamba's inner norms (``SSMConfig.inner_norms``, Jamba's; off in ``repro``):
 RMSNorms with fp32 scales ``dt_norm``, ``b_norm``, ``c_norm`` on dt, B and C
 after ``x_proj``'s split, before ``dt_proj`` and the scan, in every path
-(train, prefill, decode). The chunk loop of the scan runs in the span
-``ssm.scan``, inside the block's ``ssm.mamba``.
+(train, prefill, decode). The scan (softplus of dt, the recurrence, y with
+D and the gate silu(z)) runs in the span ``ssm.scan``, inside the block's
+``ssm.mamba``, and counts ``ssm.scan_tokens``, B x T a call.
 
 Tensor parallelism (``tp``, a ``collective.ModelParallel``; None on one
 rank): each mixer computes on this rank's slices of its leaves as
@@ -61,6 +68,7 @@ from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig, SSMConfig
 from repro_torch.core.collective import (ModelParallel, Ranges, acc_dtype, copy_to_model,
                                          exchange_model, reduce_from_model, tiles)
+from repro_torch.kernels import ops
 from repro_torch.models.layers import _dense_init, heads_of_tile
 
 Params = Dict[str, Any]
@@ -144,26 +152,6 @@ def _inner_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torc
     return (xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + eps) * scale).to(x.dtype)
 
 
-def _selective_scan_chunk(a: torch.Tensor, bx: torch.Tensor, h0: torch.Tensor):
-    """h_t = a_t * h_{t-1} + bx_t within one chunk.
-
-    a, bx: (B, c, d_in, N) fp32; h0: (B, d_in, N). Returns (h_all, h_last).
-    The pairs (a, b) compose as (a_l, b_l) then (a_r, b_r) -> (a_l a_r,
-    a_r b_l + b_r); with the row (1, h0) prepended, an inclusive scan of that
-    composition leaves h in b. The scan doubles its reach each pass
-    (Hillis-Steele): ceil(log2(c + 1)) passes over shifted views."""
-    a = torch.cat([torch.ones_like(h0)[:, None], a], dim=1)
-    b = torch.cat([h0[:, None], bx], dim=1)
-    n = a.shape[1]
-    s = 1
-    while s < n:
-        b = torch.cat([b[:, :s], torch.addcmul(b[:, s:], a[:, s:], b[:, :-s])], dim=1)
-        if 2 * s < n:  # the last pass needs no new a
-            a = torch.cat([a[:, :s], a[:, s:] * a[:, :-s]], dim=1)
-        s *= 2
-    return b[:, 1:], b[:, -1]
-
-
 def apply_mamba(
     cfg: ArchConfig,
     p: Params,
@@ -204,25 +192,12 @@ def apply_mamba(
     if s.inner_norms:
         dt, Bm, Cm = (_inner_norm(dt, p["dt_norm"]), _inner_norm(Bm, p["b_norm"]),
                       _inner_norm(Cm, p["c_norm"]))
-    acc = acc_dtype(x.dtype)
-    delta = F.softplus((dt @ p["dt_proj"]).to(acc) + p["dt_bias"][None, None, :])
-    A = -torch.exp(p["A_log"])  # (d_in, N)
-
-    xb32, Bm32, Cm32 = xb.to(acc), Bm.to(acc), Cm.to(acc)
-    h = (torch.zeros((B, xb.shape[-1], N), dtype=acc, device=x.device)
-         if state is None else state["h"])
-    ys = []
+    scan = (dt @ p["dt_proj"], p["dt_bias"], xb, p["A_log"], Bm, Cm, p["D"], z,
+            None if state is None else state["h"])
     with tracing.span("ssm.scan"):
-        for i in range(0, T, chunk):
-            d_c, x_c = delta[:, i:i + chunk], xb32[:, i:i + chunk]
-            B_c, C_c = Bm32[:, i:i + chunk], Cm32[:, i:i + chunk]
-            a = torch.exp(d_c[..., None] * A[None, None])             # (B,c,d_in,N)
-            bx = (d_c * x_c)[..., None] * B_c[:, :, None, :]          # (B,c,d_in,N)
-            h_all, h = _selective_scan_chunk(a, bx, h)
-            ys.append(torch.einsum("bcdn,bcn->bcd", h_all, C_c))
-        y = torch.cat(ys, dim=1)
-    y = y + xb32 * p["D"][None, None, :]
-    y = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
+        y, h = ops.selective_scan(*scan, chunk=chunk)
+    tracing.count("ssm.scan_tokens", B * T)
+    y = y @ p["out_proj"]
     if split:
         y = reduce_from_model(tp, y)
     new_state = None if state is None else {"conv": conv_state, "h": h}

@@ -211,8 +211,9 @@ def test_dropless_bf16_grouped_product():
 
 
 def test_spans_and_counters_of_the_hybrid_serve():
-    """``moe.sort`` and ``ssm.scan`` open in a served batch, and
-    ``moe.held`` counts the first forward's pairs of held experts."""
+    """``moe.sort`` and ``ssm.scan`` open in a served batch, ``moe.held``
+    counts the first forward's pairs of held experts, and
+    ``ssm.scan_tokens`` every fed token of every row in every Mamba layer."""
     c = config()
     m = hybrid.dims(c)
     model = zoo.build(hybrid.arch_config(c), dtype=torch.float32, device="cpu")
@@ -233,3 +234,5 @@ def test_spans_and_counters_of_the_hybrid_serve():
     layers = sum(hybrid.dims(c).is_moe(i) for i in range(m.layers))
     assert got.counts["moe.choices"] == layers * (2 * 16 + 2) * m.top_k
     assert 0 < got.counts["moe.held"] < got.counts["moe.choices"]
+    mamba = sum(m.kind(i) == "mamba" for i in range(m.layers))
+    assert mamba == 7 and got.counts["ssm.scan_tokens"] == mamba * 2 * (16 + 1)

@@ -167,16 +167,21 @@ def test_cpu_path_launches_no_kernel():
     ops.adamw_update(w.clone(), torch.zeros(16), torch.zeros(16), w.clone(), w.clone(), one,
                      one, one, one, torch.tensor(True), b1=0.9, b2=0.95, eps=1e-8,
                      weight_decay=0.1)
+    x = tq.reshape(1, 8, 32)
+    ops.selective_scan(x, torch.zeros(32), x, torch.zeros(32, 4), x[..., :4], x[..., 4:8],
+                       torch.ones(32), x, None, chunk=4)
     assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
     assert set(ops.launch_counts()) == {"flash_attention", "flash_attention_dq",
                                         "flash_attention_dkv", "decode_attention",
-                                        "decode_attention_lse", "rmsnorm", "adamw_update"}
+                                        "decode_attention_lse", "rmsnorm", "adamw_update",
+                                        "selective_scan"}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
     """The launching wrappers take CUDA tensors only; the plain version is
     chosen by ops.py for CPU tensors, never as a fallback."""
-    from repro_torch.kernels import adamw, decode_attention, flash_attention, rmsnorm
+    from repro_torch.kernels import (adamw, decode_attention, flash_attention, rmsnorm,
+                                     selective_scan)
 
     t = torch.zeros(1, 4, 2, 16)
     with pytest.raises(ValueError, match="CUDA"):
@@ -189,6 +194,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         adamw.adamw_update(w, w.clone(), w.clone(), None, w.clone(), one, one, one, one,
                            torch.tensor(True), 0.9, 0.95, 1e-8, 0.1)
+    x = torch.zeros(1, 4, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        selective_scan.selective_scan(x, w, x, torch.zeros(16, 4), x[..., :4], x[..., :4], w, x,
+                                      None)
 
 
 # ---------------------------------------------------------------- backward

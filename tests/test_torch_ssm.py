@@ -18,6 +18,7 @@ from repro.configs import registry as jregistry  # noqa: E402
 from repro.models import ssm as JS  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.models import ssm as S  # noqa: E402
 
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -70,7 +71,7 @@ def _torch_tree(t):
 
 @pytest.mark.parametrize("c", [1, 7, 8])
 def test_doubling_scan_matches_sequential_recurrence(c):
-    """_selective_scan_chunk against h_t = a_t h_{t-1} + bx_t written out in
+    """ref.selective_scan_chunk against h_t = a_t h_{t-1} + bx_t written out in
     numpy, from a random h0; c = 1 is the decode step's chunk."""
     rng = np.random.RandomState(c)
     B, d, N = 2, 3, 4
@@ -81,7 +82,7 @@ def test_doubling_scan_matches_sequential_recurrence(c):
     for t in range(c):
         h = a[:, t] * h + bx[:, t]
         want.append(h)
-    h_all, h_last = S._selective_scan_chunk(*map(torch.from_numpy, (a, bx, h0)))
+    h_all, h_last = ref.selective_scan_chunk(*map(torch.from_numpy, (a, bx, h0)))
     assert h_all.shape == (B, c, d, N) and h_last.shape == (B, d, N)
     np.testing.assert_allclose(_np(h_all), np.stack(want, 1), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(_np(h_last), want[-1], rtol=1e-5, atol=1e-5)
