@@ -213,11 +213,11 @@ non-zero exit:
      batch: prompts of 1024, 960, 896, 768, 640, 512, 384 and 256 tokens
      right-padded to 1024, one prefill, the position set to each row's
      last prompt token and that token fed again, 32 steps; each row held
-     to itself served alone (batch 1, an int position): greedy tokens
+     to itself served alone (batch 1, a 0-d position): greedy tokens
      equal unless that run's top-2 margin is below the logits' difference,
-     logits rel-L2 2e-2; launches exact (K4 28 a step, as the int path's);
+     logits rel-L2 2e-2; launches exact (K4 28 a step, as the 0-d path's);
      one step under ``torch.cuda.set_sync_debug_mode("error")``; the walls,
-     device busy and idle share of a ragged step and of the int step.
+     device busy and idle share of a ragged step and of the 0-d step.
 
 The lines before the last are the granite shapes' (D 64), jamba's shapes'
 and phase 27's shapes' kernel timings as one JSON object each, the card's name and power
@@ -3515,13 +3515,13 @@ def ragged(dev, card):
     L_b - 1, and GEN decode steps, the first fed each row's last prompt
     token again (the slots past L_b stay hidden by kv_len until they are
     overwritten), the others the row served alone's greedy tokens. Each row
-    is held to itself served alone (batch 1, an int position, its own
+    is held to itself served alone (batch 1, a 0-d position, its own
     prompt; ``seq_run``): its greedy tokens equal (or that run's top-2
     margin below the logits' difference there) and its logits within
-    rel-L2 2e-2; exact launches (K4 28 a step, as on the int path); one
+    rel-L2 2e-2; exact launches (K4 28 a step, as on the 0-d path); one
     more step completes under ``torch.cuda.set_sync_debug_mode("error")``.
     Then the walls, device busy time and idle share of a ragged step and of
-    the int step of the padded batch (phase 5's), both measured here.
+    the 0-d step of the padded batch (phase 5's), both measured here.
     Returns the ragged run's launches."""
     from repro_torch.configs import registry
     from repro_torch.kernels import ops
@@ -3558,7 +3558,7 @@ def ragged(dev, card):
     if counts != want:
         fail(f"phase 28 (b): launch counts {counts}, want {want}")
     log(f"  (b) ragged run: prefill + {GEN} steps in {t_run * 1e3:.1f} ms; launches {counts} "
-        f"(exact: K4 {counts['decode_attention'] // GEN} a step, as the int path's) [{card}]")
+        f"(exact: K4 {counts['decode_attention'] // GEN} a step, as the 0-d path's) [{card}]")
     logits = torch.stack(logits).float().cpu()  # (GEN, B, V)
     for b, a in enumerate(alone):
         want_l, got_l = a["logits"][:, 0], logits[:, b]
@@ -3591,9 +3591,9 @@ def ragged(dev, card):
     log(f"  (b) one ragged step (positions {cache['pos'].tolist()}) ran under "
         f"torch.cuda.set_sync_debug_mode('error'): no host sync")
 
-    # Walls and device time: a ragged step and the int step of the padded
+    # Walls and device time: a ragged step and the 0-d step of the padded
     # batch at position PROMPT (phase 5's), each from a fresh prefill.
-    for name, pos in (("ragged step", lens - 1), ("int step", None)):
+    for name, pos in (("ragged step", lens - 1), ("0-d step", None)):
         _, cache = prefill_fn(params, {"tokens": prompt})
         if pos is not None:
             cache["pos"] = pos.to(torch.int32)

@@ -69,7 +69,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -247,14 +247,37 @@ def masked_update(committed: torch.Tensor, new_tree: Any, old_tree: Any) -> Any:
 # ---------------------------------------------------------------------------
 
 
+def square_sum_and_finite(gs: List[torch.Tensor],
+                          split: Optional[List[Tuple[bool, bool]]] = None,
+                          data_group=None, model_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the fp32 sum of the squares of the whole leaves, whether they are
+    all finite) of the leaves ``gs``, of which this rank may hold slices:
+    ``split[i]`` says whether leaf i is split over "data" and over "model"
+    (None: all whole). The slices' squares are summed over ``data_group``
+    and ``model_group``, the finiteness over every group given (one
+    ``all_reduce`` each); a whole leaf is the same on every rank."""
+    dev = gs[0].device
+    sq = torch.zeros(4, dtype=torch.float32, device=dev)  # whole, "data", "model", both
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    for g, (d, m) in zip(gs, split or [(False, False)] * len(gs)):
+        sq[d + 2 * m] += torch.sum(torch.square(g.float()))
+        finite = finite & torch.isfinite(g).all()
+    whole, data, model, both = sq.unbind()
+    if data_group is not None:
+        part = torch.stack([data, both, (~finite).float()])
+        dist.all_reduce(part, group=data_group)
+        data, both, finite = part[0], part[1], part[2] == 0
+    model = model + both
+    if model_group is not None:
+        part = torch.stack([model, (~finite).float()])
+        dist.all_reduce(part, group=model_group)
+        model, finite = part[0], part[1] == 0
+    return whole + model + data, finite
+
+
 def gradient_vote(grads: Any, max_norm: float = 1e4) -> torch.Tensor:
     """This replica's vote: gradients are finite and in bounds."""
-    gl = leaves(grads)
-    finite = torch.ones((), dtype=torch.bool, device=gl[0].device)
-    sq = torch.zeros((), dtype=torch.float32, device=gl[0].device)
-    for g in gl:
-        finite = finite & torch.isfinite(g).all()
-        sq = sq + torch.sum(torch.square(g.float()))
+    sq, finite = square_sum_and_finite(leaves(grads))
     return (finite & (torch.sqrt(sq) < max_norm)).float()
 
 

@@ -167,7 +167,7 @@ def build_cell(arch: str, shape_name: str, mesh, device, make: Callable,
     local = {k: v.chunk(plan.rows[1])[plan.rows[0]] if plan.rows is not None else v
              for k, v in batch.items()}
 
-    def at_end():
+    def at_end():  # an int: a fake tensor has no value to give a host length
         cache["pos"] = shape.seq_len - 1
 
     at_end()

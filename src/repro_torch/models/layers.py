@@ -34,16 +34,16 @@ outputs back to wo's rows.
 
 A cache split over the sequence (``seq``, a ``collective.SeqSplit`` over
 "data"; None otherwise): each rank's attention cache holds the positions
-[r L, (r + 1) L) of its slice r (L = S / n). A prefill (cache position 0)
-computes K and V of the whole prompt on every rank, attends over them
-through K1 and writes the rank's positions into its cache; any later step
-writes the new K and V on the ranks that own their positions, runs K4's
-log-sum-exp variant (one token) or K1 with its lse (several) over each
-rank's slice and merges the ranks' partials (``collective.gather_partials``,
+[r L, (r + 1) L) of its slice r (L = S / n). A prefill computes K and V of
+the whole prompt on every rank, attends over them through K1 and writes
+the rank's positions into its cache; any later step writes the new K and V
+on the ranks that own their positions, runs K4's log-sum-exp variant (one
+token) or K1 with its lse (several) over each rank's slice and merges the
+ranks' partials (``collective.gather_partials``,
 ``kernels/ref.py::merge_partials``).
 
-A cached step's position is a Python int for the batch or a tensor, one
-per row, kept on the device (``attention``).
+A cached step's position is, as in ``repro``, a 0-d or (B,) integer tensor
+on the device, one position per row; a prefill has none (``attention``).
 """
 from __future__ import annotations
 
@@ -316,34 +316,31 @@ def attention(
     kv_end: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Full attention: the uncached forward when cache is None; a cached
-    step of T tokens written at ``cache_pos`` otherwise (prefill: T = the
-    prompt at cache_pos 0; decode: T = 1; any T at any position). Under
-    ``tp`` on this rank's heads (``head_split``), the output summed over
-    "model". Under ``seq`` the cache holds this rank's slice of the
-    positions (module docstring).
+    step of T tokens otherwise. Under ``tp`` on this rank's heads
+    (``head_split``), the output summed over "model". Under ``seq`` the
+    cache holds this rank's slice of the positions (module docstring).
 
-    ``cache_pos`` is the write index, as in ``repro``: a Python int for the
-    whole batch, or a 0-d or (B,) integer tensor on the model's device.
-    Row b's queries sit at positions ``cache_pos[b] + t`` and see the keys
-    below ``cache_pos[b] + t + 1``. Its K and V are written from a start
-    clamped to [0, S - T], as JAX's ``dynamic_update_slice`` clamps it; the
-    positions and the keys' bound stay unclamped. The writes go into the
-    cache IN PLACE (a slice assignment for an int, a scatter for a tensor),
-    which replaces JAX's update plus buffer donation: the returned cache
-    holds the same tensors as the one passed in.
+    The prefill (``Model.prefill``) is the cached call without
+    ``cache_pos``: the prompt's K and V go into slots [0, T) by a slice.
+    Any other step (decode: T = 1; any T at any position) is written at
+    ``cache_pos``, as in ``repro`` a 0-d or (B,) integer tensor on the
+    model's device (an int raises ``TypeError``). Row b's queries sit at
+    positions ``cache_pos[b] + t`` and see the keys below
+    ``cache_pos[b] + t + 1``. Its K and V are written from a start clamped
+    to [0, S - T], as JAX's ``dynamic_update_slice`` clamps it, IN PLACE (a
+    scatter each), which replaces JAX's update plus buffer donation: the
+    returned cache holds the same tensors as the one passed in.
 
-    A tensor position is never read on the host. A cache split over the
-    head dim needs a host length for its exchange, ``kv_end`` =
-    max(cache_pos) + T: ``transformer.apply_stack`` reads it once a step
-    and passes it down, and this call raises without it."""
+    The position is never read on the host. A cache split over the head dim
+    needs a host length for its exchange, ``kv_end`` = max(cache_pos) + T,
+    from ``transformer.apply_stack``; this call raises without it."""
     B, T, _ = x.shape
-    pos = _rows(cache_pos, B) if cache is not None and torch.is_tensor(cache_pos) else None
+    if cache is not None and cache_pos is not None and not isinstance(cache_pos, torch.Tensor):
+        raise TypeError(f"cache_pos is a tensor on the device, got {type(cache_pos).__name__}")
+    pos = None if cache is None or cache_pos is None else _rows(cache_pos, B)
     if positions is None:
-        if pos is not None:
-            positions = pos[:, None] + torch.arange(T, device=x.device)
-        else:
-            start = 0 if cache is None else int(cache_pos)
-            positions = torch.arange(start, start + T, device=x.device)[None, :].expand(B, T)
+        positions = (torch.arange(T, device=x.device)[None, :].expand(B, T) if pos is None
+                     else pos[:, None] + torch.arange(T, device=x.device))
     sp = None
     if tp is not None and p["wq"].shape[-1] < cfg.q_dim:
         sp = head_split(cfg, tp.size, tp.index)
@@ -359,7 +356,7 @@ def attention(
     lo, hi = (0, k.shape[2]) if sp is None or sp.wk == "heads" else sp.kv
     dims = sp is not None and sp.cache == "dims"
     if dims and pos is not None and kv_end is None:
-        raise ValueError("a cache split over the head dim with a tensor position needs kv_end")
+        raise ValueError("a cached step over a cache split over the head dim needs kv_end")
 
     def mine(t):  # what the cache holds of K or V: the head-dim slice, or the heads
         if not dims:
@@ -371,25 +368,22 @@ def attention(
         out = ops.flash_attention(q, k[:, :, lo:hi], v[:, :, lo:hi], causal=True)
         new_cache = None
     elif seq is not None:
-        out = _seq_split_step(cfg, q, k, v, cache, int(cache_pos) if pos is None else pos,
-                              tp, mine, dims, seq, lo, hi, kv_end)
+        out = _seq_split_step(cfg, q, k, v, cache, pos, tp, mine, dims, seq, lo, hi, kv_end)
         new_cache = cache
     else:
         k_cache, v_cache = cache["k"], cache["v"]
-        S = k_cache.shape[1]
-        if pos is None:
-            idx = int(cache_pos)
-            at = min(max(idx, 0), S - T)  # dynamic_update_slice's clamp
-            k_cache[:, at:at + T] = mine(k)
-            v_cache[:, at:at + T] = mine(v)
-            q_off, kv_len, n = idx, idx + T, idx + T
+        if pos is None:  # prefill: the prompt into slots [0, T)
+            k_cache[:, :T] = mine(k)
+            v_cache[:, :T] = mine(v)
+            q_off, kv_len = 0, T
         else:
-            _write_rows(cache, mine(k), mine(v), pos.clamp(0, S - T), clamped=True)
-            q_off, kv_len, n = pos, pos + T, kv_end
-        if dims and pos is None and not q_off:  # prefill: the step's own keys, its heads
+            _write_rows(cache, mine(k), mine(v), pos.clamp(0, k_cache.shape[1] - T),
+                        clamped=True)
+            q_off, kv_len = pos, pos + T
+        if dims and pos is None:  # prefill: the step's own keys, its heads
             k_cache, v_cache = k[:, :, lo:hi], v[:, :, lo:hi]
         elif dims:  # the earlier keys and values: this rank's KV heads, brought together
-            k_cache, v_cache = _heads_of_dims(cfg, tp, k_cache, v_cache, n, hi - lo)
+            k_cache, v_cache = _heads_of_dims(cfg, tp, k_cache, v_cache, kv_end, hi - lo)
         elif (lo, hi) != (0, k_cache.shape[2]):  # a whole cache: the heads this rank reads
             k_cache = k_cache[:, :, lo:hi]
             v_cache = v_cache[:, :, lo:hi]
@@ -427,39 +421,34 @@ def _heads_of_dims(cfg: ArchConfig, tp: ModelParallel, k_cache, v_cache, n: int,
     return kv.reshape(B, n, 2 * heads, -1).chunk(2, 2)
 
 
-def _seq_split_step(cfg: ArchConfig, q, k, v, cache: Params, idx,
+def _seq_split_step(cfg: ArchConfig, q, k, v, cache: Params, idx: Optional[torch.Tensor],
                     tp: Optional[ModelParallel], mine, dims: bool, seq: SeqSplit,
                     lo: int, hi: int, kv_end: Optional[int]) -> torch.Tensor:
     """Attention of a cached step over a cache split over the sequence
     (``attention``'s ``seq``): this rank's positions of the new K and V
     written into its slice, then the output (B, T, Hq_local, D). ``idx`` is
-    an int for the batch or a (B,) tensor, one position per row.
+    the (B,) tensor of the rows' positions, None in a prefill.
 
-    A prefill (the int 0) attends over the whole prompt's K and V on every
-    rank. Any other step attends over this rank's slice [start, start + L)
-    and merges the ranks' partials (``merge_partials``): K4's log-sum-exp
-    variant for one token, K1 with its lse for several, the queries at
-    ``idx - start`` (negative on a later slice: a query before the slice
-    sees none of its keys, which gives o = 0 and lse = NEG_INF)."""
-    B, T = q.shape[:2]
+    A prefill attends over the whole prompt's K and V on every rank. Any
+    other step attends over this rank's slice [start, start + L) and merges
+    the ranks' partials (``merge_partials``): K4's log-sum-exp variant for
+    one token, K1 with its lse for several, the queries at ``idx - start``
+    (negative on a later slice: a query before the slice sees none of its
+    keys, which gives o = 0 and lse = NEG_INF)."""
+    T = q.shape[1]
     L, start = seq.length, seq.index * seq.length
-    S = L * seq.size
-    if isinstance(idx, int):
-        at = min(max(idx, 0), S - T)  # dynamic_update_slice's clamp, over the whole cache
-        a, b = max(at, start), min(at + T, start + L)  # this rank's positions of the step
-        if a < b:
-            cache["k"][:, a - start:b - start] = mine(k[:, a - at:b - at])
-            cache["v"][:, a - start:b - start] = mine(v[:, a - at:b - at])
-        if idx == 0:  # prefill: the whole prompt's keys, on every rank
-            return ops.flash_attention(q, k[:, :, lo:hi].contiguous(),
-                                       v[:, :, lo:hi].contiguous(), causal=True)
-        kv_len = n = min(max(idx + T - start, 0), L)  # this rank's keys the step sees
-    else:
-        _write_rows(cache, mine(k), mine(v), idx.clamp(0, S - T) - start, clamped=False)
-        kv_len = (idx + T - start).clamp(0, L)
-        n = None if kv_end is None else min(max(kv_end - start, 0), L)
+    if idx is None:  # prefill: this rank's slots of [0, T), the whole prompt's keys
+        end = min(T, start + L)
+        if start < end:
+            cache["k"][:, :end - start] = mine(k[:, start:end])
+            cache["v"][:, :end - start] = mine(v[:, start:end])
+        return ops.flash_attention(q, k[:, :, lo:hi].contiguous(),
+                                   v[:, :, lo:hi].contiguous(), causal=True)
+    _write_rows(cache, mine(k), mine(v), idx.clamp(0, L * seq.size - T) - start, clamped=False)
+    kv_len = (idx + T - start).clamp(0, L)
     k_cache, v_cache = cache["k"], cache["v"]
     if dims:  # at least one row, so that every exchange has a shape
+        n = min(max(kv_end - start, 0), L)
         k_cache, v_cache = _heads_of_dims(cfg, tp, k_cache, v_cache, max(n, 1), hi - lo)
     elif (lo, hi) != (0, k_cache.shape[2]):
         k_cache, v_cache = k_cache[:, :, lo:hi], v_cache[:, :, lo:hi]

@@ -252,6 +252,7 @@ def apply_stack(
     gather_fn=None,
     tp: Optional[ModelParallel] = None,
     seq: Optional[SeqSplit] = None,
+    kv_end: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Optional[Params]]:
     """Runs every layer group in order: (x, aux, caches). aux sums the MoE
     blocks' aux losses over the layers (empty for a dense stack or a cached
@@ -271,13 +272,12 @@ def apply_stack(
 
     seq (optional): the attention caches' sequence split (cached calls).
 
-    cache_pos: the cached call's position, a Python int or a 0-d or (B,)
-    tensor on the device (``layers.attention``). A tensor is read on the
-    host only where an attention cache holds a slice of the head dim, once
-    for the whole stack: the length its exchanges need."""
+    cache_pos: the cached call's position, a 0-d or (B,) integer tensor on
+    the device, None in a prefill (``layers.attention``). An attention cache
+    that holds a slice of the head dim needs ``kv_end`` = max(cache_pos) + T
+    on the host: the caller's, else read once for the whole stack."""
     sig = period_signature(cfg)
-    kv_end = None
-    if torch.is_tensor(cache_pos) and caches is not None and any(
+    if kv_end is None and cache_pos is not None and caches is not None and any(
             kind == "attn" and caches[f"b{j}"]["k"].shape[-1] < cfg.head_dim
             for j, (kind, _) in enumerate(sig)):
         kv_end = int(cache_pos.max()) + x.shape[1]  # the step's one host read

@@ -12,11 +12,10 @@ same batch conventions and the same default dtype (bf16):
 still takes ``params`` first, as in JAX, so a converted JAX tree can be
 passed directly; training differentiates such a tree of detached leaves
 with ``torch.autograd.grad`` (``runtime/spmd.py``), as JAX differentiates
-its functional loss. The cache's ``pos`` is a Python int (one position for
-the whole batch: ``prefill`` returns one) or, as ``repro`` keeps it, an
-integer tensor on the device, 0-d or (B,) with one position per row;
-``decode_step`` advances a tensor on the device. Cached steps update the
-cache in place: attention K/V and the recurrent mixers' states alike.
+its functional loss. The cache's ``pos`` is, as in ``repro``, an int32
+tensor on the model's device: 0-d (``init_cache``, ``prefill``) or (B,), one
+position per row; ``decode_step`` advances it on the device. Cached steps
+update the cache in place: attention K/V and the recurrent mixers' states.
 
 Tensor parallelism: every method takes ``tp`` (a ``collective.ModelParallel``;
 None on one rank, where the code is the one-rank path) with ``params`` this
@@ -122,9 +121,9 @@ class Model(nn.Module):
         return tp is not None and params["embed"]["tok"].shape[0] < self.cfg.vocab_size
 
     def _embed(self, params: Params, batch: Dict[str, torch.Tensor],
-               pos_offset=0, tp: Optional[ModelParallel] = None) -> torch.Tensor:
+               pos_offset=None, tp: Optional[ModelParallel] = None) -> torch.Tensor:
         """The input embeddings, plus learned positions from ``pos_offset``
-        (an int or a 0-d tensor). A (B,) offset with learned positions
+        (a 0-d tensor; None: from 0). A (B,) offset with learned positions
         raises: ``repro``'s ``arange(T) + pos_offset`` broadcasts it to a
         (B, B, d) batch, which it does not serve."""
         if "embeddings" in batch:
@@ -138,10 +137,11 @@ class Model(nn.Module):
         else:
             h = L.embed_lookup(params["embed"]["tok"], batch["tokens"])
         if self.cfg.pos == "learned":
-            if torch.is_tensor(pos_offset) and pos_offset.ndim:
+            if pos_offset is not None and pos_offset.ndim:
                 raise ValueError(f"{self.cfg.name}: learned positions take one position for "
                                  f"the batch, got a tensor of shape {tuple(pos_offset.shape)}")
-            idx = torch.arange(h.shape[1], device=h.device) + pos_offset
+            idx = torch.arange(h.shape[1], device=h.device) + (
+                0 if pos_offset is None else pos_offset)
             pos = params["embed"]["pos"]
             if tp is not None and pos.shape[-1] < self.cfg.d_model:  # split over d
                 h = h + gather_from_model(tp, L.embed_lookup(pos, idx), -1)[None]
@@ -208,41 +208,50 @@ class Model(nn.Module):
                    seq: Optional[SeqSplit] = None) -> Params:
         """Under ``tp`` the attention caches hold this rank's KV heads,
         under ``seq`` this rank's slice of their positions. ``pos`` is the
-        global position."""
+        global position, 0."""
         return {
             "layers": T.init_stack_cache(self.cfg, batch_size, max_len, self.device,
                                          self.dtype, tp, seq),
-            "pos": 0,
+            "pos": self._position(0),
         }
+
+    def _position(self, n: int) -> torch.Tensor:
+        """``n`` as a 0-d int32 tensor: a fill on the device, no host copy."""
+        return torch.full((), n, dtype=torch.int32, device=self.device)
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
                 max_len: int, tp: Optional[ModelParallel] = None,
                 seq: Optional[SeqSplit] = None) -> Tuple[torch.Tensor, Params]:
         """Parallel prompt pass that also fills the decode cache: attention
         layers write the prompt's K/V into cache slots [0, T) and attend
-        causally over them (one cached multi-token step at cache_pos 0);
+        causally over them (the one cached call without a position);
         recurrent layers fold the prompt into their carried state through
         their chunked forms. A left-padded prompt runs its pad tokens
-        through the recurrence, as in ``repro``."""
+        through the recurrence, as in ``repro``. ``pos`` is T, 0-d."""
         x = batch.get("tokens", batch.get("embeddings"))
         B, Tn = x.shape[:2]
         h = self._embed(params, batch, tp=tp)
-        cache = self.init_cache(B, max_len, tp, seq)
-        h, _, layers = T.apply_stack(self.cfg, params["stack"], h,
-                                     caches=cache["layers"], cache_pos=0, tp=tp, seq=seq)
+        caches = T.init_stack_cache(self.cfg, B, max_len, self.device, self.dtype, tp, seq)
+        h, _, layers = T.apply_stack(self.cfg, params["stack"], h, caches=caches, tp=tp,
+                                     seq=seq)
         h = L.apply_norm(self.cfg, params["final_norm"], h)
-        return self._full_logits(params, h, tp), {"layers": layers, "pos": Tn}
+        return self._full_logits(params, h, tp), {"layers": layers, "pos": self._position(Tn)}
 
     def decode_step(self, params: Params, cache: Params, batch: Dict[str, torch.Tensor],
                     tp: Optional[ModelParallel] = None,
                     seq: Optional[SeqSplit] = None) -> Tuple[torch.Tensor, Params]:
         """One step for every sequence in the batch: T tokens each (T = 1
-        when decoding) at ``cache["pos"]``, which advances by T (a tensor on
-        the device)."""
-        pos = cache["pos"]
+        when decoding) at ``cache["pos"]``, which advances by T on the
+        device. Only here may ``pos`` be a Python int (the dry-run's fake
+        tensors hold no value): it becomes the 0-d tensor and gives
+        ``apply_stack`` its host length."""
+        pos, host = cache["pos"], None
+        if not torch.is_tensor(pos):
+            host, pos = pos, self._position(pos)
         h = self._embed(params, batch, pos_offset=pos, tp=tp)
-        h, _, layers = T.apply_stack(self.cfg, params["stack"], h,
-                                     caches=cache["layers"], cache_pos=pos, tp=tp, seq=seq)
+        h, _, layers = T.apply_stack(self.cfg, params["stack"], h, caches=cache["layers"],
+                                     cache_pos=pos, tp=tp, seq=seq,
+                                     kv_end=None if host is None else host + h.shape[1])
         h = L.apply_norm(self.cfg, params["final_norm"], h)
         return self._full_logits(params, h, tp), {"layers": layers, "pos": pos + h.shape[1]}
 

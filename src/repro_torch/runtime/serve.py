@@ -61,10 +61,11 @@ def build_serve_fns(model, max_len: int, device: str | torch.device = "cuda", me
     runs the rows ``sharding.serve_plan`` gives it and returns the full
     (B, V) logits of the global batch, gathered over "model" and over the
     group its rows split on; its cache holds its rows, its KV heads and, in
-    a sequence split, its slice of the positions. A (B,) tensor ``pos`` in
-    the cache (one position per row, ``zoo.Model``) is the global batch's,
-    as the batch is: decode_fn runs the rank's rows of it and returns it
-    advanced, whole.
+    a sequence split, its slice of the positions. The cache's ``pos`` is a
+    0-d or (B,) int32 tensor on the device, or an int that a caller hands
+    ``zoo.Model.decode_step``; a (B,) one (one position per row) is the
+    global batch's, as the batch is: decode_fn runs the rank's rows of it
+    and returns it advanced, whole.
 
     A prefill opens a new unit of ``repro_torch/tracing.py`` (span
     ``serve.prefill``); the decode steps after it (``serve.decode``) belong
@@ -105,7 +106,7 @@ def build_serve_fns(model, max_len: int, device: str | torch.device = "cuda", me
         with tracing.span("serve.decode"):
             batch, plan = local(batch)
             pos = cache["pos"]
-            split = plan.rows is not None and torch.is_tensor(pos) and pos.ndim == 1
+            split = plan.rows is not None and getattr(pos, "ndim", 0) == 1
             if split:  # the rank's rows of the global batch's positions
                 i, n, _ = plan.rows
                 cache["pos"] = pos.chunk(n)[i]

@@ -79,7 +79,7 @@ import torch.distributed as dist
 from repro_torch import tracing
 from repro_torch.core.collective import (GatherShard, all_gather_many, classic_track_commit,
                                          fast_quorum_size, psum, reduce_scatter_many,
-                                         voted_psum)
+                                         square_sum_and_finite, voted_psum)
 from repro_torch.models.transformer import check_tp
 from repro_torch.optim import adamw, compression
 from repro_torch.runtime import sharding as shd
@@ -215,27 +215,15 @@ def build_train_step(
                 # over "data" by the gather's backward; every other gradient is
                 # this replica's own, full-shaped.
                 already = [fsdp_stream and s and d is not None for s, d in zip(in_stack, dims)]
-                # --- Fast Raft vote on the pre-reduction leaves.
-                pre = [(g, m) for g, s, m in zip(grads, in_stack, msplit)
-                       if not (fsdp_stream and s)]
-                finite = torch.isfinite(loss)
-                sq = torch.zeros((), dtype=torch.float32, device=loss.device)
-                if tp is not None:  # the "model"-split leaves' (sq, non-finite)
-                    split = torch.zeros(2, dtype=torch.float32, device=loss.device)
-                for g, m in pre:
-                    if m:
-                        split[0] += torch.sum(torch.square(g.float()))
-                        split[1] += (~torch.isfinite(g)).any().float()
-                    else:
-                        finite = finite & torch.isfinite(g).all()
-                        sq = sq + torch.sum(torch.square(g.float()))
-                if tp is not None:
-                    # The whole leaves' norm and finiteness: one vote per replica.
-                    dist.all_reduce(split, group=tp.group)
-                    finite = finite & (split[1] == 0)
-                    sq = sq + split[0]
-                vote = (finite & (torch.sqrt(sq) < vote_max_norm)).float()
-                del pre
+                # --- Fast Raft vote on the pre-reduction leaves: the whole
+                # leaves' norm and finiteness (the "model" slices summed over
+                # "model"), one vote per replica.
+                pre = [i for i, s in enumerate(in_stack) if not (fsdp_stream and s)]
+                sq, finite = square_sum_and_finite(
+                    [grads[i] for i in pre], [(False, msplit[i]) for i in pre],
+                    model_group=None if tp is None else tp.group)
+                vote = (torch.isfinite(loss) & finite
+                        & (torch.sqrt(sq) < vote_max_norm)).float()
 
                 if track == "classic":
                     # Two dedicated vote rounds before the reduction; the verdict
@@ -295,32 +283,13 @@ def build_train_step(
                 # shard. The global norm adds the FSDP shards' squares over "data"
                 # and the "model" slices' over "model" (a leaf split on both over
                 # both). (Without FSDP or TP every leaf is the same on every rank.)
-                repl_sq = torch.zeros((), dtype=torch.float32, device=loss.device)
-                # (sq of data-split leaves, non-finite[, sq of leaves split on both])
-                shard = torch.zeros(2 if tp is None else 3, dtype=torch.float32,
-                                    device=loss.device)
-                if tp is not None:
-                    model_sq = torch.zeros((), dtype=torch.float32, device=loss.device)
-                for g, d, m in zip(red, dims, msplit):
-                    gs = torch.sum(torch.square(g.float()))
-                    if m and d is not None:
-                        shard[2] += gs
-                    elif m:
-                        model_sq = model_sq + gs
-                    elif d is None:
-                        repl_sq = repl_sq + gs
-                    else:
-                        shard[0] += gs
-                    shard[1] += (~torch.isfinite(g)).any().float()
-                if fsdp:
-                    dist.all_reduce(shard, group=data_group if data_group is not None else group)
-                if tp is not None:
-                    whole = torch.stack([model_sq + shard[2], shard[1]])
-                    dist.all_reduce(whole, group=tp.group)
-                    shard[1] = whole[1]
-                    repl_sq = repl_sq + whole[0]  # with the "model" slices' squares
-                committed = committed & (shard[1] == 0)
-                grad_norm = torch.sqrt(repl_sq + shard[0])
+                sq, finite = square_sum_and_finite(
+                    red, [(d is not None, m) for d, m in zip(dims, msplit)],
+                    data_group=(data_group if data_group is not None else group) if fsdp
+                    else None,
+                    model_group=None if tp is None else tp.group)
+                committed = committed & finite
+                grad_norm = torch.sqrt(sq)
 
             with tracing.span("train.update"):
                 # --- AdamW on the local shards, written in place leaf by leaf

@@ -1,17 +1,19 @@
 """A cached step's position as ``repro`` defines it: a 0-d or (B,) integer
-tensor, one position per row, beside the Python int of one position for the
-batch. The port's ``layers.attention``, ``transformer.apply_stack`` and
-``Model.decode_step`` against ``repro``'s on the same numpy inputs (reduced
-configs, parameters initialised in JAX and converted leaf by leaf), in fp32
-at rtol/atol 2e-4 (tests/test_models_smoke.py):
+tensor on the device, one position per row, and no other kind. The port's
+``layers.attention``, ``transformer.apply_stack`` and ``Model.decode_step``
+against ``repro``'s on the same numpy inputs (reduced configs, parameters
+initialised in JAX and converted leaf by leaf), in fp32 at rtol/atol 2e-4
+(tests/test_models_smoke.py):
 
   - the layer with a (B,) position for T = 1 and T = 3, a row whose write
-    is clamped at the cache's end among them (output and cache);
+    is clamped at the cache's end among them (output and cache); a 0-d
+    position is the (B,) one of equal entries; a Python int raises;
   - the stack of reduced jamba-v0.1-52b (Mamba + attention), whose mixers
     take no position;
   - two decode steps with a (B,) position after a right-padded prefill, for
-    reduced qwen3-1.7b and granite-moe-1b-a400m; a 0-d position gives the
-    int path's logits;
+    reduced qwen3-1.7b and granite-moe-1b-a400m; ``prefill`` returns
+    ``repro``'s 0-d int32 position, and an int handed to ``decode_step``
+    decodes as that tensor;
   - learned positions (reduced musicgen-large): a 0-d position as in
     ``repro``, and the ``ValueError`` for a (B,) one.
 """
@@ -88,18 +90,31 @@ def test_layer_with_a_position_per_row(T_, pos):
 
 
 def test_layer_int_and_0d_positions_agree():
-    """A 0-d tensor is the int's step: same output, same cache."""
+    """A 0-d position is the (B,) position of equal entries: same output,
+    same cache (an int raises: ``test_attention_takes_no_int_position``)."""
     _, _, model, params = _pair("qwen3-1.7b")
     cfg = model.cfg
     p = {k: v[0] for k, v in params["stack"]["b0"]["mixer"].items()}
     x = torch.from_numpy(np.random.RandomState(6).randn(2, 3, cfg.d_model).astype(np.float32))
     ck, cv = _caches((2, S, cfg.n_kv_heads, cfg.head_dim), 7)
     outs = []
-    for cp in (7, torch.tensor(7)):
+    for cp in (torch.tensor(7, dtype=torch.int32), torch.tensor([7, 7], dtype=torch.int32)):
         cache = {"k": torch.from_numpy(ck.copy()), "v": torch.from_numpy(cv.copy())}
         outs.append((L.attention(cfg, p, x, cache=cache, cache_pos=cp)[0], cache))
     (y0, c0), (y1, c1) = outs
     assert torch.equal(y0, y1) and torch.equal(c0["k"], c1["k"]) and torch.equal(c0["v"], c1["v"])
+
+
+def test_attention_takes_no_int_position():
+    """A cached step's position is a tensor, as in ``repro``: a Python int
+    raises ``TypeError`` (the prefill takes none)."""
+    _, _, model, params = _pair("qwen3-1.7b")
+    cfg = model.cfg
+    p = {k: v[0] for k, v in params["stack"]["b0"]["mixer"].items()}
+    cache = {"k": torch.zeros(2, S, cfg.n_kv_heads, cfg.head_dim),
+             "v": torch.zeros(2, S, cfg.n_kv_heads, cfg.head_dim)}
+    with pytest.raises(TypeError, match="cache_pos"):
+        L.attention(cfg, p, torch.zeros(2, 1, cfg.d_model), cache=cache, cache_pos=7)
 
 
 def test_jamba_stack_with_a_position_per_row():
@@ -156,19 +171,27 @@ def test_decode_steps_with_a_position_per_row(arch):
 
 
 def test_0d_position_decodes_as_the_int():
-    """``decode_step`` at a 0-d tensor position gives the int path's logits
-    exactly and advances the tensor."""
-    _, _, model, params = _pair("qwen3-1.7b")
-    tokens = torch.from_numpy(np.random.RandomState(10).randint(0, model.cfg.vocab_size, (2, 9)))
+    """``prefill`` returns ``repro``'s position: a 0-d int32 tensor on the
+    model's device equal to ``asarray(Tn, int32)``. An int handed to
+    ``decode_step`` decodes bit for bit as that tensor, and both advance
+    to the same 0-d tensor."""
+    jmodel, jparams, model, params = _pair("qwen3-1.7b")
+    tokens = np.random.RandomState(10).randint(0, model.cfg.vocab_size, (2, 9))
+    _, jcache = jmodel.prefill(jparams, {"tokens": jnp.asarray(tokens[:, :8])}, S)
     out = []
-    for as_tensor in (False, True):
-        _, cache = model.prefill(params, {"tokens": tokens[:, :8]}, S)
-        if as_tensor:
-            cache["pos"] = torch.tensor(cache["pos"])
-        logits, cache = model.decode_step(params, cache, {"tokens": tokens[:, 8:9]})
+    for as_int in (False, True):
+        _, cache = model.prefill(params, {"tokens": torch.from_numpy(tokens[:, :8])}, S)
+        pos = cache["pos"]
+        assert pos.device == model.device
+        np.testing.assert_array_equal(pos.numpy(), np.asarray(jcache["pos"]), strict=True)
+        if as_int:
+            cache["pos"] = int(pos)
+        logits, cache = model.decode_step(params, cache,
+                                          {"tokens": torch.from_numpy(tokens[:, 8:9])})
         out.append((logits, cache["pos"]))
     assert torch.equal(out[0][0], out[1][0])
-    assert out[0][1] == 9 and torch.is_tensor(out[1][1]) and int(out[1][1]) == 9
+    for _, pos in out:
+        assert pos.shape == () and pos.dtype == torch.int32 and int(pos) == 9
 
 
 def test_learned_positions_take_a_0d_position_and_refuse_a_row_each():

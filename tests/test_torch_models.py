@@ -82,9 +82,9 @@ def test_norms_and_rope_match(pair):
 @pytest.mark.parametrize("T,cache_pos", [(6, 0), (3, 4), (1, 9), (3, [4, 0]), (1, [9, 2]),
                                          (3, [10, 11])])
 def test_cached_attention_matches(pair, T, cache_pos):
-    """One cached attention step of T tokens at cache_pos (an int, or a
-    list that goes as a (B,) tensor: one position per row, the last case's
-    second row clamped at the cache's end): output and cache."""
+    """One cached attention step of T tokens at cache_pos (an int goes as a
+    0-d tensor, a list as a (B,) tensor: one position per row, the last
+    case's second row clamped at the cache's end): output and cache."""
     _, jparams, model, params = pair
     cfg = model.cfg
     jp = jax.tree_util.tree_map(lambda a: a[0], jparams["stack"]["b0"]["mixer"])
@@ -97,7 +97,7 @@ def test_cached_attention_matches(pair, T, cache_pos):
                           cache={"k": jnp.asarray(ck), "v": jnp.asarray(cv)},
                           cache_pos=jnp.asarray(cache_pos, jnp.int32))
     cache = {"k": torch.from_numpy(ck.copy()), "v": torch.from_numpy(cv.copy())}
-    cp = torch.tensor(cache_pos) if isinstance(cache_pos, list) else cache_pos
+    cp = torch.tensor(cache_pos, dtype=torch.int32)
     y, c = L.attention(cfg, p, torch.from_numpy(x), cache=cache, cache_pos=cp)
     np.testing.assert_allclose(_np(y), _np(jy), **TOL)
     for name in ("k", "v"):
@@ -228,7 +228,7 @@ def test_init_stack_builds_every_block_kind(kind):
     y, _, _ = T.apply_stack(cfg, stack, x)
     assert y.shape == x.shape and torch.isfinite(y).all()
     caches = T.init_stack_cache(cfg, 2, 8, "cpu", torch.float32)
-    y2, _, _ = T.apply_stack(cfg, stack, x, caches=caches, cache_pos=0)
+    y2, _, _ = T.apply_stack(cfg, stack, x, caches=caches)  # the prefill's call
     torch.testing.assert_close(y2, y, rtol=2e-4, atol=2e-4)
     if kind != "attn":  # the recurrent state moved off its zero start
         assert any(t.abs().sum() > 0 for t in caches["b0"].values() if t.dtype == torch.float32)

@@ -106,7 +106,8 @@ def _main(spec):
                                                                      dtype=torch.long,
                                                                      device=dev)})
             calls.append(summary(c))
-            for _ in range(spec["decodes"]):
+            for i in range(spec["decodes"]):
+                cache["pos"] = prompt + i  # an int: a fake tensor has no value
                 with Collectives() as c:
                     _, cache = decode_fn(params, cache,
                                          {"tokens": torch.empty((B, 1), dtype=torch.long,

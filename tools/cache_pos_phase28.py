@@ -5,9 +5,10 @@ rows at their own positions, a 1-token and a 3-token step; (b) full
 qwen3-1.7b in bf16 serving a ragged batch (prompts of 1024 down to 256
 tokens, right-padded), each row held to itself served alone, exact
 launches, one step under ``torch.cuda.set_sync_debug_mode("error")``, and
-the walls and idle shares of a ragged step and of the int step. First, what
-it needs: the kernels built and K1's queries that see no key (phase 3's
-``check_empty_rows``, or all of phase 3 with ``--kernels all``).
+the walls and idle shares of a ragged step and of the 0-d step (the
+position ``prefill`` returns). First, what it needs: the kernels built and
+K1's queries that see no key (phase 3's ``check_empty_rows``, or all of
+phase 3 with ``--kernels all``).
 
     python3 tools/cache_pos_phase28.py [--kernels all|empty|none] [--seq]
 
