@@ -18,8 +18,11 @@ raises rather than use the plain version. CPU tensors differentiate
 through the plain versions.
 
 Launch counts: each kernel module keeps a ``launches`` counter that its
-wrapper bumps once per kernel launch and nowhere else; ``launch_counts``
-reads them all and ``reset_launches`` sets them to 0.
+wrapper bumps once per kernel launch; ``launch_counts`` reads them all,
+``reset_launches`` sets them to 0, and ``add_launches`` credits a replayed
+CUDA graph with the launches its capture made (``runtime/decode_graph.py``),
+so that a replay counts as the eager call counts. ``scratch`` gives the
+buffers that kernels keep across calls, which such a graph holds.
 
 Each launch is a ``torch.library.custom_op`` of the ``repro_torch``
 namespace (``flash_attention_fwd``, ``flash_attention_dq``,
@@ -36,7 +39,7 @@ and the operations are registered with ``torch.utils.flop_counter``, so
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Mapping, Tuple
 
 import torch
 
@@ -47,9 +50,12 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rms
 from repro_torch.kernels import selective_scan as _ss
 
-KERNELS = ("flash_attention", "flash_attention_dq", "flash_attention_dkv",
-           "decode_attention", "decode_attention_lse", "rmsnorm", "adamw_update",
-           "selective_scan")
+# kernel name -> the counter of the module that launches it
+_OWNERS = {"flash_attention": _fa.launches, "flash_attention_dq": _fa.launches,
+           "flash_attention_dkv": _fa.launches, "decode_attention": _dec.launches,
+           "decode_attention_lse": _dec.launches, "rmsnorm": _rms.launches,
+           "adamw_update": _adamw.launches, "selective_scan": _ss.launches}
+KERNELS = tuple(_OWNERS)
 _COUNTERS = (_fa.launches, _dec.launches, _rms.launches, _adamw.launches, _ss.launches)
 
 
@@ -121,6 +127,21 @@ def launch_counts() -> Dict[str, int]:
 def reset_launches() -> None:
     for c in _COUNTERS:
         c.clear()
+
+
+def add_launches(counts: Mapping[str, int]) -> None:
+    """Adds ``counts`` (kernel name -> launches, negative to take away) to
+    the launch counters."""
+    for name, n in counts.items():
+        _OWNERS[name][name] += n
+
+
+def scratch() -> List[torch.Tensor]:
+    """The device buffers that kernels keep across calls: K4's workspace and
+    counters of each stream (``decode_attention._workspace``). A later call
+    at a larger shape replaces its stream's pair, so a CUDA graph that
+    captured a launch keeps these alive."""
+    return [t for pair in _dec._scratch.values() for t in pair]
 
 
 def _needs_grad(*ts: torch.Tensor) -> bool:

@@ -18,6 +18,10 @@ A rank's cache holds its rows and its part of each layer's state: its KV
 heads or their head-dim slices (``sharding.cache_spec``), the recurrent
 mixers' channels, d_k rows or heads (``models/ssm.py``), whole in B and S
 in case 3.
+
+On one CUDA device, a decode step at a tensor position replays a captured
+CUDA graph of the step (``runtime/decode_graph.py``); every other step,
+and the first at each key, runs eagerly.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from repro_torch.core.collective import all_gather_dim
 from repro_torch.device import resolve
 from repro_torch.models.transformer import check_tp
 from repro_torch.runtime import sharding as shd
+from repro_torch.runtime.decode_graph import DecodeGraphs, captures, count
 from repro_torch.tree import tree_map
 
 
@@ -53,8 +58,13 @@ def build_serve_fns(model, max_len: int, device: str | torch.device = "cuda", me
 
     ``prefill_fn(params, batch) -> (last_logits, cache)`` and
     ``decode_fn(params, cache, batch) -> (logits, cache)``; the batch is
-    moved to the device, no autograd graph is kept, and decode updates the
-    cache in place (JAX donated it).
+    moved to the device and no autograd graph is kept. Decode takes the
+    cache as JAX's donated one: the returned cache holds the state, and the
+    one passed in may have been updated in place or read and left as it
+    was. The logits are a tensor of their own every step. Where
+    ``decode_graph.captures`` holds, decode replays the step's CUDA graph
+    of its key (``runtime/decode_graph.py``), whose cache is its static
+    buffers: decode from the newest cache it returned, or from a new one.
 
     With ``mesh``, ``params`` are this rank's slices (``shard_params``) and
     every rank of the mesh calls the fns with the same global batch. A rank
@@ -76,6 +86,7 @@ def build_serve_fns(model, max_len: int, device: str | torch.device = "cuda", me
     if mesh is not None:
         check_tp(model.cfg, shd.mesh_axis_size(mesh, "model"))
     tp = None if mesh is None else shd.model_parallel(mesh)
+    graphs = DecodeGraphs(model)
 
     def local(batch):
         """This rank's rows of ``batch`` on the device, and the plan."""
@@ -104,6 +115,9 @@ def build_serve_fns(model, max_len: int, device: str | torch.device = "cuda", me
     @torch.no_grad()
     def decode_fn(params, cache, batch):
         with tracing.span("serve.decode"):
+            if captures(dev, mesh, cache["pos"]):
+                return graphs(params, cache, batch)
+            count("serve.decode_eager")
             batch, plan = local(batch)
             pos = cache["pos"]
             split = plan.rows is not None and getattr(pos, "ndim", 0) == 1

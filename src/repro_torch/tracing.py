@@ -21,6 +21,21 @@ no aten op, no device sync.
                     is also False inside a backward pass, where a
                     rematerialised forward runs the same code again.
 
+  uncounted()       a context manager inside which ``counting()`` is False
+                    and ``count`` drops its value.
+
+A captured decode step (``runtime/decode_graph.py``) is captured inside
+``uncounted()``: a device counter captured into a CUDA graph would add again
+at every replay, from the graph's memory pool. A replay runs no Python of
+the step, so the spans and counters inside it (``moe.*``, ``ssm.mamba``,
+``ssm.scan``, ``ssm.scan_tokens``, ...) record the eager step and the
+capture, and never a replay; ``serve.decode`` opens around every step.
+The serve entry counts how each decode step ran, in host ints: one of
+``serve.decode_replays`` (a captured graph replayed),
+``serve.decode_captures`` (the first step at a key: eager, then captured)
+and ``serve.decode_eager`` (eager: on the CPU, on a mesh, for an int
+position, or at a key whose capture was refused) a step.
+
 Whether on or off, while a ``torch.profiler`` is recording, a span also
 opens a profiler range of its name (``_RecordFunctionFast``: a host event
 only, no device-side annotation), so that a profile can put the kernels
@@ -32,10 +47,11 @@ as the program's custom ops.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import threading
 import time
-from typing import Dict, List, NamedTuple, Union
+from typing import Dict, Iterator, List, NamedTuple, Union
 
 import torch
 from torch.autograd import profiler as _profiler
@@ -59,6 +75,7 @@ class Drained(NamedTuple):
 
 
 _on = False
+_quiet = False  # inside ``uncounted()``
 _spans: List[Span] = []
 _host_counts: Dict[str, int] = {}
 _device_counts: Dict[str, torch.Tensor] = {}
@@ -122,13 +139,24 @@ def span(name: str, unit: bool = False):
 
 
 def counting() -> bool:
-    """True while tracing is on, outside a backward pass."""
-    return _on and torch._C._current_graph_task_id() == -1
+    """True while tracing is on, outside a backward pass and ``uncounted()``."""
+    return _on and not _quiet and torch._C._current_graph_task_id() == -1
+
+
+@contextlib.contextmanager
+def uncounted() -> Iterator[None]:
+    """No counting inside (see the module's doc)."""
+    global _quiet
+    saved, _quiet = _quiet, True
+    try:
+        yield
+    finally:
+        _quiet = saved
 
 
 def count(name: str, value: Union[int, torch.Tensor]) -> None:
     """Adds ``value`` to the counter ``name``; a tensor stays on its device."""
-    if not _on:
+    if not _on or _quiet:
         return
     if isinstance(value, torch.Tensor):
         held = _device_counts.get(name)

@@ -130,12 +130,27 @@ def test_prefill_and_decode_ops_with_tracing_off_and_on(arch):
     if "mamba" in cfg.block_types():  # Mamba's chunk loop, inside ssm.mamba
         mixers.add("ssm.scan")
     assert {s.name for s in got.spans if s.name.startswith("ssm.")} == mixers
-    if cfg.moe is None:
-        assert on == off and got.counts == {}
+    if cfg.moe is None:  # the CPU's step is eager, counted on the host alone
+        assert on == off and got.counts == {"serve.decode_eager": 1}
     else:  # the serving forward counts its routing too
         assert got.counts["moe.choices"] > 0
         assert set(on - off) <= {"sum", "rsub", "detach", "_to_copy", "add_"}
         assert off - on == collections.Counter()
+
+
+def test_uncounted_drops_counts():
+    """Inside ``uncounted()`` (a captured decode step) nothing is counted, a
+    device tensor included; outside it, and after it, counting goes on."""
+    tracing.enable()
+    tracing.count("serve.decode_replays", 1)
+    with tracing.uncounted():
+        assert not tracing.counting()
+        tracing.count("serve.decode_replays", 1)
+        tracing.count("moe.held", torch.tensor(5))
+    assert tracing.counting()
+    tracing.count("moe.held", torch.tensor(2))
+    tracing.disable()
+    assert tracing.drain().counts == {"serve.decode_replays": 1, "moe.held": 2}
 
 
 def test_spans_nest_per_thread_with_units():
